@@ -1,0 +1,90 @@
+"""The RepCONC model: dense encoder + OPQ rotation + PQ codebook head.
+
+Counterpart of repconc_tpu/models/repconc_model.py:32-106,120-122 as one
+nn.Module: `encoder` (DenseEncoder), `rotation` (D, D), applied as
+x @ rotation.T, and `centroids` (M, K, dsub).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from repconc_tpu_torch.core import checkpoint
+from repconc_tpu_torch.core.config import METRIC_CENTROID_COS, RepConcConfig
+from repconc_tpu_torch.core.device import resolve_device
+from repconc_tpu_torch.models.transformer import DenseEncoder
+from repconc_tpu_torch.quant import codebook
+
+
+class QuantizeOutput(NamedTuple):
+    continuous_embeds: torch.Tensor
+    quantized_embeds: Optional[torch.Tensor] = None
+    discrete_codes: Optional[torch.Tensor] = None
+
+
+class RepConcModel(nn.Module):
+    def __init__(self, config: RepConcConfig):
+        super().__init__()
+        self.config = config
+        D = config.hidden_size
+        self.encoder = DenseEncoder(config.encoder, config.similarity_metric)
+        self.register_buffer("rotation", torch.eye(D))  # frozen, as in JAX
+        self.centroids = nn.Parameter(
+            torch.zeros(config.MCQ_M, config.MCQ_K, config.dsub))
+
+    def encode_continuous(self, input_ids, attention_mask) -> torch.Tensor:
+        """Dense encode -> rotate -> per-subvector normalize for CENTROID_COS
+        (repconc_model.py:61-79)."""
+        embeds = self.encoder(input_ids, attention_mask)
+        rotated = embeds @ self.rotation.T
+        if self.config.similarity_metric == METRIC_CENTROID_COS:
+            rotated = codebook.normalize_subvectors(rotated, self.config.MCQ_M)
+        return rotated
+
+    def forward(self, input_ids, attention_mask, discrete_codes=None,
+                return_code: bool = False,
+                return_quantized_embedding: bool = False,
+                use_constraint: bool = False) -> QuantizeOutput:
+        """repconc_model.py:82-106. Decoding gathers centroid rows; the
+        gather's gradient reaches the centroids as the one-hot einsum's
+        does."""
+        rotated = self.encode_continuous(input_ids, attention_mask)
+        if discrete_codes is None and (return_code or return_quantized_embedding):
+            discrete_codes = codebook.encode(rotated, self.centroids,
+                                             use_constraint=use_constraint)
+        quantized = (codebook.decode_gather(discrete_codes, self.centroids)
+                     if return_quantized_embedding else None)
+        return QuantizeOutput(rotated, quantized, discrete_codes)
+
+
+@torch.no_grad()
+def init_random_(model: RepConcModel, generator: torch.Generator,
+                 std: float = 0.02) -> RepConcModel:
+    """Seeded random weights in place: N(0, std) for Linear and Embedding
+    weights (HF BERT's initializer_range), zero biases, unit LayerNorms,
+    identity rotation and N(0, 1) centroids (repconc_model.py:40-58)."""
+    for module in model.modules():
+        if isinstance(module, (nn.Linear, nn.Embedding)):
+            module.weight.copy_(torch.randn(module.weight.shape,
+                                            generator=generator) * std)
+            if getattr(module, "bias", None) is not None:
+                module.bias.zero_()
+        elif isinstance(module, nn.LayerNorm):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+    model.rotation.copy_(torch.eye(model.rotation.shape[0]))
+    cent = torch.randn(model.centroids.shape, generator=generator)
+    if model.config.similarity_metric == METRIC_CENTROID_COS:
+        cent = codebook.normalize_centroids(cent)
+    model.centroids.copy_(cent)
+    return model
+
+
+def from_pretrained(load_dir: str, device="cuda") -> RepConcModel:
+    """Load a repconc_tpu model dir (repconc_config.json + params.msgpack)."""
+    from repconc_tpu_torch.models.convert import from_jax_params
+
+    config, params = checkpoint.load_model(load_dir)
+    return from_jax_params(config, params).to(resolve_device(device))
