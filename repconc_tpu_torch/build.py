@@ -39,6 +39,7 @@ class Build:
 
 
 _lock = threading.Lock()
+_source_locks: Dict[str, threading.Lock] = {}
 _builds: Dict[str, Build] = {}
 _libraries: Dict[str, ctypes.CDLL] = {}
 
@@ -57,8 +58,11 @@ def nvcc_path() -> str:
 
 
 def build(source_name: str) -> Build:
-    """Compile csrc/<source_name> (once per process and source hash)."""
+    """Compile csrc/<source_name> (once per process and source hash).
+    Builds of different sources may run at once, from several threads."""
     with _lock:
+        source_lock = _source_locks.setdefault(source_name, threading.Lock())
+    with source_lock:
         if source_name in _builds:
             return _builds[source_name]
         source = CSRC_DIR / source_name

@@ -1,12 +1,12 @@
 """RepCONC index build + retrieval eval on the port (counterpart of
-repconc_tpu/cli/run_repconc_eval.py:32-277, flat index).
+repconc_tpu/cli/run_repconc_eval.py:32-277, flat and IVF indexes).
 
 Encodes the corpus to uint8 codes with the DOC encoder and the queries to
 fp32 embeddings with the QUERY encoder, then ADC-searches with the QUERY
 encoder's centroids (the stage-2 centroid swap, :182-183). The cache layout
 is the JAX package's, so either package searches caches the other wrote:
 
-  out_corpus_dir/codes.npy, corpus_ids.npy
+  out_corpus_dir/codes.npy, corpus_ids.npy, ivf_index.npz (--index_type ivf)
   out_query_dir/codes.npy (fp32 query embeddings), qids.npy, run.tsv,
                 metric.json, timings.json
 
@@ -19,6 +19,7 @@ import argparse
 import json
 import logging
 import os
+import zipfile
 
 import numpy as np
 
@@ -32,6 +33,8 @@ from repconc_tpu_torch.eval.run_io import (
 )
 from repconc_tpu_torch.eval.trec import evaluate_run
 from repconc_tpu_torch.index.adc import batch_adc_search
+from repconc_tpu_torch.index.ivf import (IVFIndex, build_ivf_from_codes,
+                                         serve_search)
 
 logger = logging.getLogger(__name__)
 
@@ -64,7 +67,10 @@ def build_parser():
     parser.add_argument("--nprobe", type=int, default=64)
     parser.add_argument("--serving", default="auto",
                         choices=["auto", "pallas", "xla", "decoded", "decoded_int8"],
-                        help="IVF serving path: only auto is accepted")
+                        help="IVF serving path: auto (the CUDA kernels on a "
+                             "GPU, the exact scan on the CPU), pallas (the "
+                             "cell-grouped path forced), xla (the exact "
+                             "fp32-LUT scan); decoded* are not ported yet")
     parser.add_argument("--lut_dtype", default="bf16", choices=["bf16", "int8"])
     parser.add_argument("--data_parallel", action="store_true")
     parser.add_argument("--corpus_embed_path", default=None,
@@ -78,12 +84,8 @@ def check_ported(args) -> None:
     """Options whose paths the port does not have yet raise; nothing falls
     back to another path."""
     pending = [
-        (args.index_type == "ivf", "--index_type ivf",
-         "Queue 1 item 7 (IVF-PQ serving, kernels K2/K3)"),
-        (args.serving != "auto", f"--serving {args.serving}",
-         "Queue 1 item 7 (IVF-PQ serving)"),
-        (args.lut_dtype == "int8", "--lut_dtype int8",
-         "Queue 2 (kernels K3/K4)"),
+        (args.serving in ("decoded", "decoded_int8"), f"--serving {args.serving}",
+         "Queue 1 item 7 (decoded residency)"),
         (args.data_parallel, "--data_parallel", "Queue 1 item 12 (multi-GPU)"),
         (args.token_cache_dir is not None, "--token_cache_dir",
          "Queue 1 item 5 (TokenCache)"),
@@ -111,6 +113,49 @@ def load_model_and_tokenizer(model_dir: str, adapter, device):
     tokenizer = load_adapter_tokenizer(model_dir, adapter or
                                        model.config.encoder.model_type)
     return model, tokenizer
+
+
+def search_ivf(codes, corpus_ids, query_embeds, centroids, out_corpus_dir,
+               args, device, stopwatch):
+    """The --index_type ivf branch (repconc_tpu/cli/run_repconc_eval.py:
+    184-240): load out_corpus_dir/ivf_index.npz, or build it from the codes
+    when it is missing, unreadable or stale (another nlist, another corpus
+    size), save it, swap in the QUERY model's centroids and serve.
+
+    args needs nlist, nprobe, topk, search_batch, serving and lut_dtype.
+    Returns (scores, docids); a -1 pad row maps to corpus_ids[0] with a
+    -inf score, which write_run_tsv drops.
+    """
+    ivf_path = os.path.join(out_corpus_dir, "ivf_index.npz")
+    nlist = min(args.nlist, codes.shape[0])
+    with stopwatch("build_ivf"):
+        ivf = None
+        if os.path.exists(ivf_path):
+            try:
+                ivf = IVFIndex.load(out_corpus_dir)
+            except (OSError, ValueError, TypeError, KeyError, EOFError,
+                    zipfile.BadZipFile) as e:  # a partial npz from a killed run
+                logger.warning("cached ivf_index.npz unreadable (%s): "
+                               "rebuilding", e)
+            if ivf is not None and (ivf.nlist != nlist
+                                    or ivf.ntotal != codes.shape[0]):
+                logger.warning("cached ivf_index.npz is stale (nlist %d vs %d, "
+                               "ntotal %d vs %d docs): rebuilding", ivf.nlist,
+                               nlist, ivf.ntotal, codes.shape[0])
+                ivf = None
+        if ivf is None:
+            # the coarse quantizer trains on PQ reconstructions of the codes
+            # being served (run_repconc_eval.py:211-228)
+            ivf = build_ivf_from_codes(codes, centroids, nlist=args.nlist,
+                                       device=device, stopwatch=stopwatch)
+            ivf.save(out_corpus_dir)
+    ivf.set_centroids(centroids)
+    with stopwatch("search"):
+        scores, row_ids = serve_search(
+            ivf, query_embeds, topk=args.topk, nprobe=args.nprobe,
+            search_batch=args.search_batch, mode=args.serving,
+            lut_dtype=args.lut_dtype, device=device)
+    return scores, corpus_ids[np.maximum(row_ids, 0)]
 
 
 def main(argv=None):
@@ -179,10 +224,15 @@ def main(argv=None):
 
     # --- search with the QUERY model's centroids (stage-2 swap semantics) ---
     centroids = q_model.centroids.detach().cpu().numpy()
-    with sw("search"):
-        scores, topk_ids = batch_adc_search(
-            query_ids, query_embeds, corpus_ids, codes, centroids,
-            topk=args.topk, batch_size=args.search_batch, device=device)
+    if args.index_type == "ivf":
+        scores, topk_ids = search_ivf(codes, corpus_ids, query_embeds,
+                                      centroids, args.out_corpus_dir, args,
+                                      device, sw)
+    else:
+        with sw("search"):
+            scores, topk_ids = batch_adc_search(
+                query_ids, query_embeds, corpus_ids, codes, centroids,
+                topk=args.topk, batch_size=args.search_batch, device=device)
     out_run_path = os.path.join(args.out_query_dir, "run.tsv")
     write_run_tsv(out_run_path, query_ids, scores, topk_ids)
     logger.info("phase wall-clock (s): %s",

@@ -6,7 +6,9 @@ query q is
     score(q, n) = sum_m LUT[q, m, codes[n, m]],   LUT[q, m, k] = <q_m, C[m, k]>
 
 `score_codes_reference` is the plain PyTorch version of the CUDA scan in
-index/cuda_adc.py (the port of the TPU kernel `_adc_onehot_kernel`).
+index/cuda_adc.py (the port of the TPU kernel `_adc_onehot_kernel`), and
+`score_codes_int8_reference` that of its int8-LUT twin (the port of
+`_adc_onehot_kernel_i8`), with the LUT from `quantize_lut_int8`.
 """
 from __future__ import annotations
 
@@ -43,6 +45,56 @@ def score_codes_reference(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tenso
                       device=lut.device)
     for m in range(codes.shape[1]):
         acc += lut[:, m].index_select(1, idx[:, m])
+    return acc
+
+
+def group_size(M: int, K: int) -> int:
+    """m-group size of the int8 LUT (pallas_adc.py:57-61): the largest of 8,
+    4, 2, 1 dividing M with gm * K a multiple of 128. Scales are per
+    (query, group), so gm is part of the int8 result and is kept as the JAX
+    package picks it: gm=4 at M=12, gm=8 at M=48 (K=256)."""
+    for gm in (8, 4, 2, 1):
+        if M % gm == 0 and (gm * K) % 128 == 0:
+            return gm
+    raise ValueError(f"unsupported (M={M}, K={K})")
+
+
+def quantize_lut_int8(lut: torch.Tensor, gm: int):
+    """Per-(query, group) symmetric int8 quantization (pallas_adc.py:133-146).
+
+    lut (Q, M, K) f32 -> (lut_i8 (Q, M, K) int8, scales (Q, M // gm) f32).
+    Quantizes the plain layout viewed as (Q, G, gm * K): a group's amax
+    does not depend on the TPU's k-major lane order (`permute_lut`), so the
+    values equal JAX's after undoing it. torch.round rounds half to even, as
+    jnp.round does.
+    """
+    Q, M, K = lut.shape
+    grouped = lut.reshape(Q, M // gm, gm * K)
+    amax = grouped.abs().amax(-1)
+    scale = amax.clamp(min=1e-12) / 127.0
+    q = torch.round(grouped / scale[:, :, None]).clamp(-127, 127)
+    return q.to(torch.int8).reshape(Q, M, K), scale
+
+
+def score_codes_int8_reference(lut_i8: torch.Tensor, scales: torch.Tensor,
+                               codes: torch.Tensor) -> torch.Tensor:
+    """(Q, M, K) int8 LUT, (Q, G) f32 scales, (N, M) uint8 codes -> (Q, N)
+    f32: per m-group an exact int32 sum of LUT entries, then
+    acc = acc + part * scale in f32, g in order, as the CUDA kernel adds.
+    Codes above K - 1 clamp to K - 1."""
+    Q, M, K = lut_i8.shape
+    G = scales.shape[1]
+    gm = M // G
+    idx = codes.long().clamp(max=K - 1)
+    lut = lut_i8.to(torch.int32)
+    acc = torch.zeros((Q, codes.shape[0]), dtype=torch.float32,
+                      device=lut.device)
+    for g in range(G):
+        part = torch.zeros((Q, codes.shape[0]), dtype=torch.int32,
+                           device=lut.device)
+        for m in range(g * gm, (g + 1) * gm):
+            part += lut[:, m].index_select(1, idx[:, m])
+        acc = acc + part.float() * scales[:, g:g + 1]
     return acc
 
 

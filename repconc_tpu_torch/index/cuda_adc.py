@@ -1,8 +1,10 @@
-"""K1 on Hopper: the CUDA ADC scan and the device-resident index around it.
+"""K1 and K4 on Hopper: the CUDA ADC scans and the device-resident index.
 
-Counterpart of repconc_tpu/index/pallas_adc.py:189-307. `adc_scores` is the
+Counterpart of repconc_tpu/index/pallas_adc.py:149-307. `adc_scores` is the
 wrapper of the hand-written kernel in csrc/adc_scan.cu, which replaces the
-TPU kernel `_adc_onehot_kernel` (pallas_adc.py:89-104). `CudaADCIndex` is
+TPU kernel `_adc_onehot_kernel` (pallas_adc.py:89-104); `adc_scores_int8`
+wraps csrc/adc_scan_i8.cu, which replaces its int8-LUT twin
+`_adc_onehot_kernel_i8` (pallas_adc.py:107-130). `CudaADCIndex` is
 the counterpart of `PallasADCIndex`: padded uint8 codes on the device once,
 `set_centroids`, a chunked scan with a per-chunk top-k and one final merge
 (`_search_device`, pallas_adc.py:229-260).
@@ -15,9 +17,12 @@ import torch
 
 from repconc_tpu_torch import build
 from repconc_tpu_torch.core.device import resolve_device
-from repconc_tpu_torch.index.adc import build_lut, score_codes_reference
+from repconc_tpu_torch.index.adc import (build_lut,
+                                         score_codes_int8_reference,
+                                         score_codes_reference)
 
 SOURCE = "adc_scan.cu"
+SOURCE_I8 = "adc_scan_i8.cu"
 
 
 def _scan_fn():
@@ -26,6 +31,15 @@ def _scan_fn():
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _scan_i8_fn():
+    fn = build.load_library(SOURCE_I8).repconc_adc_scan_i8
+    fn.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -70,6 +84,60 @@ def adc_scores(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
 
 
 adc_scores.launches = 0
+
+
+def adc_scores_int8(lut_i8: torch.Tensor, scales: torch.Tensor,
+                    codes: torch.Tensor) -> torch.Tensor:
+    """scores (Q, N) f32 from an int8 LUT (index/adc.py::quantize_lut_int8):
+    per m-group an int32 sum, then sum_g part_g * scales[q, g] in f32.
+
+    lut_i8: (Q, M, K) int8 with K <= 256; scales: (Q, G) f32 with G
+    dividing M; codes: (N, M) uint8; all contiguous on one device. A CUDA
+    tensor launches the kernel (or raises); a CPU tensor takes the plain
+    version, score_codes_int8_reference. Each launch adds one to
+    `adc_scores_int8.launches`.
+    """
+    if lut_i8.dim() != 3 or codes.dim() != 2 or codes.shape[1] != lut_i8.shape[1]:
+        raise ValueError(f"lut {tuple(lut_i8.shape)} and codes "
+                         f"{tuple(codes.shape)} do not fit (Q, M, K), (N, M)")
+    Q, M, K = lut_i8.shape
+    if (scales.dim() != 2 or scales.shape[0] != Q or scales.shape[1] < 1
+            or M % scales.shape[1] != 0):
+        raise ValueError(f"scales {tuple(scales.shape)} do not fit (Q={Q}, G), "
+                         f"G dividing M={M}")
+    if (lut_i8.dtype != torch.int8 or scales.dtype != torch.float32
+            or codes.dtype != torch.uint8):
+        raise TypeError(f"want an int8 lut, f32 scales and uint8 codes, got "
+                        f"{lut_i8.dtype}, {scales.dtype} and {codes.dtype}")
+    if K > 256:
+        raise ValueError(f"K={K} > 256 does not fit uint8 codes")
+    if not (lut_i8.device == scales.device == codes.device):
+        raise ValueError(f"lut on {lut_i8.device}, scales on {scales.device}, "
+                         f"codes on {codes.device}")
+    if not (lut_i8.is_contiguous() and scales.is_contiguous()
+            and codes.is_contiguous()):
+        raise ValueError("adc_scores_int8 needs contiguous inputs")
+    if lut_i8.device.type == "cpu":
+        return score_codes_int8_reference(lut_i8, scales, codes)
+    if lut_i8.device.type != "cuda":
+        raise ValueError(f"adc_scores_int8 runs on cuda or cpu, not "
+                         f"{lut_i8.device}")
+    N = codes.shape[0]
+    gm = M // scales.shape[1]
+    out = torch.empty((Q, N), dtype=torch.float32, device=lut_i8.device)
+    fn = _scan_i8_fn()
+    with torch.cuda.device(lut_i8.device):
+        stream = torch.cuda.current_stream(lut_i8.device).cuda_stream
+        err = fn(lut_i8.data_ptr(), scales.data_ptr(), codes.data_ptr(),
+                 out.data_ptr(), Q, N, M, K, gm, lut_i8.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"adc_scan_i8 launch failed: cudaError {err} "
+                           f"(Q={Q}, N={N}, M={M}, K={K}, gm={gm})")
+    adc_scores_int8.launches += 1
+    return out
+
+
+adc_scores_int8.launches = 0
 
 
 class CudaADCIndex:

@@ -2,6 +2,7 @@
 run IO, bucket padding, the toy end-to-end retrieval of
 tests/test_e2e_toy.py, and run_repconc_eval reading caches written by the
 other package in both directions."""
+import json
 import os
 import shutil
 
@@ -191,14 +192,68 @@ def test_cli_reads_the_other_packages_caches(toy_model_dir, toy_data, tmp_path,
         assert (d / "metric.json").exists() and (d / "timings.json").exists()
 
 
+IVF_ARGS = ["--index_type", "ivf", "--nlist", "8", "--nprobe", "4"]
+
+
+@pytest.mark.parametrize("writer,serving", [
+    ("jax", []), ("port", []),
+    ("jax", ["--serving", "pallas", "--lut_dtype", "int8"]),
+    ("port", ["--serving", "pallas", "--lut_dtype", "int8"])])
+def test_cli_ivf_reads_the_other_packages_index(toy_model_dir, toy_data,
+                                                tmp_path, writer, serving):
+    """--index_type ivf: one package encodes, builds ivf_index.npz and
+    searches; the other searches the same caches, reading that index, and
+    writes the same run.tsv and metric.json. The default serving (auto) is
+    the exact scan on the CPU in both; pallas with the int8 LUT runs JAX's
+    kernels in interpret mode and the port's plain K3."""
+    paths = _write_toy_files(tmp_path, *toy_data)
+    port = lambda a: port_cli.main(a + ["--device", "cpu"])  # noqa: E731
+    first, second = (jax_cli.main, port) if writer == "jax" else (port,
+                                                                 jax_cli.main)
+    c1, q1, c2, q2 = (tmp_path / n for n in ("c1", "q1", "c2", "q2"))
+    first(_cli_args(toy_model_dir, paths, c1, q1) + IVF_ARGS + serving)
+    _copy_caches(c1, q1, c2, q2)
+    shutil.copy(c1 / "ivf_index.npz", c2)
+    stamp = os.path.getmtime(c2 / "ivf_index.npz")
+    second(_cli_args(toy_model_dir, paths, c2, q2) + IVF_ARGS + serving)
+    assert os.path.getmtime(c2 / "ivf_index.npz") == stamp  # read, not rebuilt
+    want = trec.parse_run(str(q1 / "run.tsv"))
+    got = trec.parse_run(str(q2 / "run.tsv"))
+    assert len(got) == 20
+    assert_runs_match(got, want)
+    with open(q1 / "metric.json") as f1, open(q2 / "metric.json") as f2:
+        assert json.load(f2) == json.load(f1)
+
+
+def test_cli_ivf_rebuilds_a_stale_or_unreadable_index(toy_model_dir, toy_data,
+                                                      tmp_path):
+    """A cached ivf_index.npz built at another --nlist, or one that does not
+    load, is rebuilt at the asked nlist and saved over the old one."""
+    from repconc_tpu_torch.index.ivf import IVFIndex
+
+    paths = _write_toy_files(tmp_path, *toy_data)
+    cdir, qdir = tmp_path / "c", tmp_path / "q"
+    args = _cli_args(toy_model_dir, paths, cdir, qdir) + ["--device", "cpu"]
+    port_cli.main(args + IVF_ARGS)
+    assert IVFIndex.load(str(cdir)).nlist == 8
+    first_run = (qdir / "run.tsv").read_text()
+    os.remove(qdir / "metric.json")
+    port_cli.main(args + ["--index_type", "ivf", "--nlist", "4"])
+    assert IVFIndex.load(str(cdir)).nlist == 4
+    (cdir / "ivf_index.npz").write_bytes(b"not an npz")
+    os.remove(qdir / "metric.json")
+    port_cli.main(args + IVF_ARGS)
+    assert IVFIndex.load(str(cdir)).nlist == 8
+    assert (qdir / "run.tsv").read_text() == first_run
+
+
 def test_cli_guards_and_unported_options(toy_model_dir, toy_data, tmp_path):
     paths = _write_toy_files(tmp_path, *toy_data)
     same = _cli_args(toy_model_dir, paths, tmp_path / "x", tmp_path / "x")
     with pytest.raises(SystemExit):
         port_cli.main(same + ["--device", "cpu"])
     base = _cli_args(toy_model_dir, paths, tmp_path / "c", tmp_path / "q")
-    for extra in (["--index_type", "ivf"], ["--serving", "xla"],
-                  ["--lut_dtype", "int8"], ["--data_parallel"],
+    for extra in (["--serving", "decoded"], ["--data_parallel"],
                   ["--token_cache_dir", str(tmp_path)],
                   ["--adapter", "ance"]):
         with pytest.raises(NotImplementedError):

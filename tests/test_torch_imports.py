@@ -10,6 +10,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -122,6 +123,50 @@ def test_kernel_wrapper_raises_instead_of_falling_back(where):
     assert adc_scores.launches == before
 
 
+def _int8_scan_inputs():
+    from repconc_tpu_torch.index.cuda_adc import adc_scores_int8
+
+    return adc_scores_int8, [torch.zeros((4, 8, 32), dtype=torch.int8),
+                             torch.ones((4, 2)),
+                             torch.zeros((10, 8), dtype=torch.uint8)]
+
+
+def _ivf_scan_inputs(lut_dtype):
+    from repconc_tpu_torch.index.cuda_ivf import score_work_tiles
+
+    lut = torch.zeros((5, 8, 32), dtype=(torch.int8 if lut_dtype == "int8"
+                                         else torch.bfloat16))
+    args = [torch.zeros(3, dtype=torch.int32),
+            torch.full((3, 32), 4, dtype=torch.int32), lut,
+            torch.zeros((2, 128, 8), dtype=torch.uint8)]
+    if lut_dtype == "int8":
+        args.append(torch.ones((5, 2)))
+    return score_work_tiles, args
+
+
+@pytest.mark.parametrize("kernel", ["adc_scan_i8", "ivf_scan_bf16",
+                                    "ivf_scan_i8"])
+@pytest.mark.parametrize("where", ["meta", "mixed"])
+def test_new_kernel_wrappers_raise_instead_of_falling_back(kernel, where):
+    """adc_scores_int8 (K4) and score_work_tiles (K2 / K3) take their plain
+    versions only for CPU tensors; a tensor they cannot launch on raises
+    and counts no launch."""
+    if kernel == "adc_scan_i8":
+        fn, args = _int8_scan_inputs()
+    else:
+        fn, args = _ivf_scan_inputs("int8" if kernel == "ivf_scan_i8" else "bf16")
+    before = repr(fn.launches)
+    fn(*args)  # CPU tensors: the plain version, no launch
+    assert repr(fn.launches) == before
+    if where == "meta":
+        args = [a.to("meta") for a in args]
+    else:
+        args[-1] = args[-1].to("meta")
+    with pytest.raises(ValueError):
+        fn(*args)
+    assert repr(fn.launches) == before
+
+
 def test_entry_points_refuse_cuda_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
@@ -133,3 +178,8 @@ def test_entry_points_refuse_cuda_without_a_gpu():
     with pytest.raises(RuntimeError):
         CudaADCIndex(torch.zeros((4, 2), dtype=torch.uint8),
                      torch.zeros((2, 16, 4)))
+    from repconc_tpu_torch.index.ivf import build_ivf_from_codes
+
+    with pytest.raises(RuntimeError):
+        build_ivf_from_codes(np.zeros((4, 2), np.uint8),
+                             np.zeros((2, 16, 4), np.float32), nlist=2)
