@@ -11,13 +11,26 @@ shows where it stopped:
                 csrc/adc_scan.cu, K2 and K3 csrc/ivf_scan.cu, K4
                 csrc/adc_scan_i8.cu; ptxas registers and spills
   2 k1_check    K1 against its plain PyTorch version on the card, at M=12
-                (Q x N grid), M=48, M=96 and the main path's shapes: scores
-                to rtol=atol=1e-5, top-1000 ids equal except near-ties
-                (< 1e-5 apart); kernel, plain and bound times
+                (Q x N grid), M=48, M=96 and one chunk of the full scan:
+                scores to rtol=atol=1e-5, top-1000 ids equal except
+                near-ties (< 1e-5 apart); kernel, plain and bound times
+  2b k1_topk_check
+                the two passes of the fused top-k (adc_group_max,
+                adc_filter) against their plain versions: gmax bit for bit,
+                the same candidate sets with bit-equal scores, the same
+                counts, at M=12, 48, 96 (Q=129, N=100,003, pad docs
+                present), with exact ties at tau (a forced rerun of pass
+                2), and at the full scan's shapes; adc_topk against K1 and
+                torch.topk; ms, plain ms, bound, reruns
   3 full_scan   CudaADCIndex over 8,841,823 random M=12 codes (MS MARCO's
-                passage count), one 1200-query top-1000 search
+                passage count), 1200-query top-1000 searches through
+                adc_topk: 64 queries held to the chunked K1 + torch.topk
+                path (ids equal except exact ties, scores bit-equal), the
+                re-sum check, the time of each step, the chunked path and
+                the embedding_bag yardsticks timed in the same run, and a
+                sweep over the number of groups
   4 main_path   repconc_retrieval at bert-base width (the M=12 checkpoint's
-                config, seeded random weights) over 8192 synthetic docs and
+                config, seeded random weights) over 65,536 synthetic docs and
                 256 queries, on the card; launch counts read around it;
                 ranking checked against the plain scorer, 8 docs checked
                 against the CPU (proves TF32 is off), TREC run written and
@@ -33,14 +46,15 @@ shows where it stopped:
                 (nlist=4096) on the card, then serve_search of 1200 queries,
                 nprobe=64, top-1000, bf16 and int8 LUTs; checks that the
                 scores re-sum with each run's own LUT (int8 and its scales
-                for the cells' docs, bf16 for the spill, which K1 scans),
+                for the cells' docs, bf16 for the spill, which adc_topk
+                scans),
                 the ids lie in probed cells or the spill, the
                 top-1000 of 64 queries is the exact top-1000 of their probed
                 cells and the spill, and int8 top-100 overlaps bf16's
   7 ivf_main_path
                 the CLI's own IVF branch (run_repconc_eval.search_ivf) on
                 phase 4's codes and query embeddings, nlist=64: at full probe
-                the ranking equals the flat K1 ranking except near-ties; the
+                the ranking equals the flat ranking except near-ties; the
                 int8 LUT run and nprobe=8 recall; every run's scores
                 re-summed as in phase 6; TREC run written and scored
   8 kernels     one JSON line per the port's kernel table
@@ -110,13 +124,43 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def bound_ms(nbytes: float, adds: float):
+    """(least time in ms, "bytes" or "operations") on an H100 SXM: the
+    bytes over HBM's rate against the adds at the fp32 rate."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = adds / H100_FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def adc_bound(Q: int, N: int, M: int, K: int):
     """Least time for the scan's work on an H100 SXM: codes, LUT and scores
     moved once over HBM, against Q*N*M f32 adds."""
-    nbytes = N * M + Q * M * K * 2 + Q * N * 4
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = Q * N * M / H100_FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return bound_ms(N * M + Q * M * K * 2 + Q * N * 4, Q * N * M)
+
+
+def pass_bounds(gmax, tau, count, N: int, M: int, K: int, topk: int):
+    """Least times of pass 1, pass 2 and the whole search on this run's
+    inputs. Pass 1: codes and LUT read once, gmax written, Q*N*M adds.
+    Pass 2: the codes of the groups some query needs, the LUT, gmax and tau
+    read once, the candidates written (12 bytes each), and the adds of each
+    query's groups that reach its tau (what this data needs). The search:
+    codes and LUT read, top-k written, Q*N*M adds."""
+    import torch
+    from repconc_tpu_torch.index.adc import doc_groups
+
+    Q, G = gmax.shape
+    lut_bytes = Q * M * K * 2
+    docs = torch.bincount(doc_groups(N, G, gmax.device), minlength=G).double()
+    need = gmax >= tau[:, None]
+    adds2 = float((need.double() @ docs).sum()) * M
+    codes2 = float(docs[need.any(0)].sum()) * M
+    return {
+        "pass1": bound_ms(N * M + lut_bytes + Q * G * 4, Q * N * M),
+        "pass2": bound_ms(codes2 + lut_bytes + Q * G * 4 + Q * 4
+                          + float(count.sum()) * 12 + Q * 4, adds2),
+        "search": bound_ms(N * M + lut_bytes + Q * topk * 12, Q * N * M),
+        "pass2_adds_share": adds2 / (Q * N * M),
+    }
 
 
 def topk_agree(s_a, i_a, scores_b, k_tol: float) -> bool:
@@ -134,13 +178,14 @@ def topk_agree(s_a, i_a, scores_b, k_tol: float) -> bool:
 
 def phase_k1_check(dev):
     import torch
+    import torch.nn.functional as F
     from repconc_tpu_torch.index.adc import score_codes_reference
     from repconc_tpu_torch.index.cuda_adc import adc_scores
 
     shapes = [(Q, N, 12) for Q in (1, 129, 1200)
               for N in (1, 1000, 100_003, 1_048_576)]
     shapes += [(129, 100_003, 48), (129, 100_003, 96),
-               (256, 8192, 12),        # the main path's search (phase 4)
+               (256, 65_536, 12),      # the main path's corpus (phase 4)
                (1200, 1 << 17, 12)]    # one chunk of the full scan (phase 3)
     K = 256
     results, worst = {}, 0.0
@@ -162,23 +207,216 @@ def phase_k1_check(dev):
         plain_ms = time_ms(lambda: score_codes_reference(lut, codes))
         bound_ms, bound_by = adc_bound(Q, N, M, K)
         worst = max(worst, err)
-        results[(Q, N, M)] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                  bound_by=bound_by, max_abs_err=err)
+        res = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, max_abs_err=err)
+        if (Q, N, M) == (1200, 1 << 17, 12):
+            # one library call computing the same function, transposed:
+            # the (M * K, Q) f32 LUT summed over each doc's M rows
+            weight = lut.float().reshape(Q, M * K).T.contiguous()
+            bag = codes.long() + torch.arange(M, device=dev) * K
+            res["library_ms"] = time_ms(
+                lambda: F.embedding_bag(bag, weight, mode="sum"))
+            res["library_max_abs_err"] = float(
+                (F.embedding_bag(bag, weight, mode="sum").T - got).abs().max())
+            res["library_call"] = ("torch.nn.functional.embedding_bag(codes + "
+                                   "m * K, lut (M * K, Q) f32, mode='sum')")
+            del weight, bag
+        results[(Q, N, M)] = res
         emit("k1_check", Q=Q, N=N, M=M, K=K, max_abs_err=err, ms=ms,
              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-             library_ms=None)
+             library_ms=res.get("library_ms"),
+             library_max_abs_err=res.get("library_max_abs_err"))
         del lut, codes, got, want, s_got, i_got
         torch.cuda.empty_cache()
     return results, worst
 
 
+def same_candidates(got, want, lut, codes, cap: int, what: str) -> None:
+    """Pass 2 on the card (got) against its plain version (want), each
+    (cand_s, cand_i, count): equal counts; min(count, cap) slots filled and
+    the rest -inf / -1; where count <= cap the same ids with bit-equal
+    scores (the kernel stores them in arrival order); past cap, distinct ids
+    whose scores are their plain scores."""
+    import torch
+    from repconc_tpu_torch.index.adc import score_codes_reference
+
+    (s_g, i_g, c_g), (s_w, i_w, c_w) = got, want
+    check(torch.equal(c_g, c_w), f"{what}: counts equal")
+    cap = s_g.shape[1]
+    filled = (torch.arange(cap, device=s_g.device)[None, :]
+              < c_w.clamp(max=cap)[:, None].long())
+    check(bool(((i_g >= 0) == filled).all())
+          and bool((torch.isneginf(s_g) | filled).all()),
+          f"{what}: min(count, cap) slots filled, the rest -inf / -1")
+    big = torch.iinfo(torch.long).max
+
+    def by_id(s, i):
+        ids, perm = torch.sort(torch.where(filled, i, big), dim=1)
+        return torch.gather(s, 1, perm), ids
+
+    (s_gs, ids_g), (s_ws, ids_w) = by_id(s_g, i_g), by_id(s_w, i_w)
+    under = c_w <= cap
+    check(torch.equal(ids_g[under], ids_w[under])
+          and torch.equal(s_gs[under], s_ws[under]),
+          f"{what}: candidate sets equal, scores bit-equal")
+    for r in torch.nonzero(~under).flatten().tolist():
+        ids = ids_g[r]
+        check(bool((ids[1:] != ids[:-1]).all()), f"{what}: distinct ids")
+        plain = score_codes_reference(lut[r:r + 1], codes[ids])[0]
+        check(torch.equal(plain, s_gs[r]), f"{what}: past cap, plain scores")
+
+
+def plain_in_slices(fn, Q: int, rows: int):
+    """A plain version over query slices of `rows` (its (Q, N) temporaries
+    do not fit the card at the full scan's size), results concatenated."""
+    import torch
+
+    parts = [fn(slice(q, min(q + rows, Q))) for q in range(0, Q, rows)]
+    return tuple(torch.cat(p) for p in zip(*parts)) if isinstance(
+        parts[0], tuple) else torch.cat(parts)
+
+
+def phase_k1_topk_check(dev):
+    """adc_group_max and adc_filter against their plain versions; adc_topk
+    against a top-k over K1's scores."""
+    import torch
+    from repconc_tpu_torch.index.adc import (adc_filter_reference,
+                                             adc_group_max_reference)
+    from repconc_tpu_torch.index.cuda_adc import (adc_filter, adc_group_max,
+                                                  adc_scores, adc_topk,
+                                                  search_plan)
+
+    K, topk = 256, 1000
+    cases = [  # name, Q, N, M, pad rows, distinct rows (0: all random)
+        ("m12", 129, 100_003, 12, 77, 0),
+        ("m48", 129, 100_003, 48, 77, 0),
+        ("m96", 129, 100_003, 96, 77, 0),
+        ("ties", 129, 100_003, 12, 77, 40),
+        ("full", 1200, MSMARCO_PASSAGES, 12, 0, 0),
+    ]
+    results = {}
+    for name, Q, N, M, npad, distinct in cases:
+        g = torch.Generator(device=dev).manual_seed(SEED + Q + N + M + distinct)
+        lut = torch.randn((Q, M, K), generator=g, device=dev).to(torch.bfloat16)
+        codes = torch.randint(0, K, (N + npad, M), generator=g, device=dev,
+                              dtype=torch.uint8)
+        if distinct:  # each score shared by ~2,500 docs: ties at tau
+            codes[:N] = codes[:distinct].repeat(-(-N // distinct), 1)[:N]
+        G, cap = search_plan(N, topk)
+        rows = 50 if name == "full" else Q
+        what = f"k1_topk_check {name}"
+        gmax = adc_group_max(lut, codes, N, G)
+        want = plain_in_slices(lambda sl: adc_group_max_reference(
+            lut[sl], codes, N, G), Q, rows)
+        check(torch.equal(gmax, want), f"{what}: gmax bit for bit")
+        tau = torch.topk(gmax, topk, dim=1).values[:, -1].contiguous()
+        got = adc_filter(lut, codes, N, tau, cap, gmax)
+        want = plain_in_slices(lambda sl: adc_filter_reference(
+            lut[sl], codes, N, tau[sl].contiguous(), cap), Q, rows)
+        torch.cuda.synchronize()
+        same_candidates(got, want, lut, codes, cap, what)
+        count = got[2]
+        reruns = adc_topk.reruns
+        s, i = adc_topk(lut, codes, N, topk)
+        reruns = adc_topk.reruns - reruns
+        if name != "full":  # full_scan holds 64 queries at this size
+            scores = adc_scores(lut, codes[:N])
+            check(torch.equal(s, torch.topk(scores, topk, dim=1).values)
+                  and torch.equal(torch.gather(scores, 1, i), s),
+                  f"{what}: adc_topk scores bit-equal to K1 + torch.topk")
+            del scores
+        check(bool((i[:, 1:] > i[:, :-1])[s[:, 1:] == s[:, :-1]].all()),
+              f"{what}: ties in id order")
+        check(reruns == int(int(count.max()) > cap),
+              f"{what}: pass 2 reran exactly when a count passed cap")
+        if distinct:
+            check(reruns == 1, f"{what}: the ties force a rerun")
+        reps, plain_reps = (5, 1) if name == "full" else (10, 3)
+        pass1_ms = time_ms(lambda: adc_group_max(lut, codes, N, G), reps=reps)
+        pass2_ms = time_ms(lambda: adc_filter(lut, codes, N, tau, cap, gmax),
+                           reps=reps)
+        plain1_ms = time_ms(lambda: plain_in_slices(
+            lambda sl: adc_group_max_reference(lut[sl], codes, N, G), Q, rows),
+            reps=plain_reps, warmup=1)
+        plain2_ms = time_ms(lambda: plain_in_slices(
+            lambda sl: adc_filter_reference(lut[sl], codes, N,
+                                            tau[sl].contiguous(), cap),
+            Q, rows), reps=plain_reps, warmup=1)
+        topk_ms = time_ms(lambda: adc_topk(lut, codes, N, topk), reps=reps)
+        b = pass_bounds(gmax, tau, count, N, M, K, topk)
+        res = {
+            "adc_group_max": dict(ms=pass1_ms, plain_ms=plain1_ms,
+                                  bound_ms=b["pass1"][0],
+                                  bound_by=b["pass1"][1], max_abs_err=0.0),
+            "adc_filter": dict(ms=pass2_ms, plain_ms=plain2_ms,
+                               bound_ms=b["pass2"][0], bound_by=b["pass2"][1],
+                               max_abs_err=0.0),
+        }
+        shape = dict(Q=Q, N=N, M=M, K=K, G=G, topk=topk, cap=cap)
+        for r in res.values():
+            r["shape"] = shape
+        results[name] = res
+        emit("k1_topk_check", case=name, **shape, pad_rows=npad,
+             distinct_rows=distinct or None, passes=res,
+             pass2_adds_share=b["pass2_adds_share"], adc_topk_ms=topk_ms,
+             adc_topk_bound_ms=b["search"][0],
+             adc_topk_bound_by=b["search"][1],
+             candidates_mean=float(count.float().mean()),
+             candidates_max=int(count.max()), reruns=reruns,
+             library_ms=None)
+        del lut, codes, gmax, tau, got, want, s, i, count
+        torch.cuda.empty_cache()
+    return results
+
+
+def unfused_search(lut, codes, n_valid: int, topk: int, chunk: int):
+    """The search CudaADCIndex ran before the two-pass top-k: K1 scores a
+    chunk, pads masked to -inf, torch.topk per chunk, one merge. Kept here
+    as the yardstick of adc_topk."""
+    import torch
+    from repconc_tpu_torch.index.cuda_adc import adc_scores
+
+    cand_s, cand_i = [], []
+    for base in range(0, n_valid, chunk):
+        scores = adc_scores(lut, codes[base:base + chunk])
+        scores[:, n_valid - base:] = -torch.inf
+        s, i = torch.topk(scores, min(topk, chunk), dim=1, sorted=False)
+        cand_s.append(s)
+        cand_i.append(i + base)
+    s, pos = torch.topk(torch.cat(cand_s, 1), topk, dim=1)
+    return s, torch.gather(torch.cat(cand_i, 1), 1, pos)
+
+
+def library_search(weight, doc_codes, topk: int, chunk: int):
+    """The same search from library calls: embedding_bag scores a chunk,
+    torch.topk per chunk, one merge."""
+    import torch
+    import torch.nn.functional as F
+
+    cand_s, cand_i = [], []
+    for base in range(0, doc_codes.shape[0], chunk):
+        scores = F.embedding_bag(doc_codes[base:base + chunk], weight,
+                                 mode="sum")                   # (Nc, Q)
+        s, i = torch.topk(scores, min(topk, scores.shape[0]), dim=0,
+                          sorted=False)
+        cand_s.append(s)
+        cand_i.append(i + base)
+    s, pos = torch.topk(torch.cat(cand_s, 0), topk, dim=0)
+    return s.T, torch.gather(torch.cat(cand_i, 0), 0, pos).T
+
+
 def phase_full_scan(dev):
     import torch
-    from repconc_tpu_torch.index.cuda_adc import CudaADCIndex
+    from repconc_tpu_torch.index import cuda_adc
+    from repconc_tpu_torch.index.adc import build_lut
+    from repconc_tpu_torch.index.cuda_adc import (CudaADCIndex, adc_filter,
+                                                  adc_group_max, adc_scores,
+                                                  adc_topk, search_plan,
+                                                  select_topk)
 
-    M, K, D, Q, topk = 12, 256, 768, 1200, 1000
+    M, K, D, Q, topk, N = 12, 256, 768, 1200, 1000, MSMARCO_PASSAGES
     g = torch.Generator(device=dev).manual_seed(SEED)
-    codes = torch.randint(0, K, (MSMARCO_PASSAGES, M), generator=g, device=dev,
+    codes = torch.randint(0, K, (N, M), generator=g, device=dev,
                           dtype=torch.uint8)
     cent = torch.randn((M, K, D // M), generator=g, device=dev)
     queries = torch.randn((Q, D), generator=g, device=dev)
@@ -186,41 +424,118 @@ def phase_full_scan(dev):
     del codes
     index.search_device(queries[:8], topk)  # first call: cuBLAS, attributes
     torch.cuda.synchronize()
-    t = time.perf_counter()
-    s, i = index.search_device(queries, topk)
-    torch.cuda.synchronize()
-    search_s = time.perf_counter() - t
-    nc = index.codes.shape[0] // index.chunk
+    times = []
+    for rep in range(3):
+        reset_launches()
+        t = time.perf_counter()
+        s, i = index.search_device(queries, topk)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        if rep == 0:
+            launches = launch_counts()
+    search_s = statistics.median(times)
+    check(launches["adc_group_max"] == 1 and launches["adc_filter"] >= 1
+          and launches["adc_scan"] == 0,
+          f"full scan through the two passes, not K1 ({launches})")
     check(tuple(s.shape) == (Q, topk) and bool(torch.isfinite(s).all()),
           "full scan: finite (Q, topk) scores")
-    check(bool((i >= 0).all()) and bool((i < MSMARCO_PASSAGES).all()),
+    check(bool((i >= 0).all()) and bool((i < N).all()),
           "full scan: ids in range")
     check(bool((s[:, :-1] >= s[:, 1:]).all()), "full scan: sorted scores")
     # the returned scores are the plain sums of the returned docs' codes
-    from repconc_tpu_torch.index.adc import build_lut
-
-    lut = build_lut(queries, index.centroids).to(torch.bfloat16).float()
+    lut_bf16 = build_lut(queries, index.centroids).to(torch.bfloat16)
+    lut = lut_bf16.float()
     picked = index.codes[i].long()                         # (Q, topk, M)
     resum = torch.zeros_like(s)
     for m in range(M):
         resum += lut[:, m].gather(1, picked[:, :, m])
     err = float((resum - s).abs().max())
     check(err <= ADC_TOL, f"full scan: returned scores re-summed ({err})")
-    # one chunk's parts: the K1 scan and the per-chunk top-k
-    from repconc_tpu_torch.index.cuda_adc import adc_scores
+    del picked, resum
+    # 64 queries against the chunked path: scores bit-equal, ids equal
+    # except among exact ties (adc_topk takes the lower id there)
+    nq = 64
+    s_u, i_u = unfused_search(lut_bf16[:nq].contiguous(), index.codes, N,
+                              topk, index.chunk)
+    check(torch.equal(s[:nq], s_u), "full scan: scores bit-equal to the "
+          "chunked K1 + torch.topk path")
+    differ = i[:nq] != i_u
+    tied = (s[:nq] == s[:nq].roll(1, 1)) | (s[:nq] == s[:nq].roll(-1, 1))
+    tied |= s[:nq] == s[:nq, -1:]
+    above = s[:nq] > s[:nq, -1:]   # every doc above the cut, in both
+    big = torch.iinfo(torch.long).max
+    check(bool(tied[differ].all()) and torch.equal(
+        torch.sort(torch.where(above, i[:nq], big), 1).values,
+        torch.sort(torch.where(above, i_u, big), 1).values),
+        "full scan: ids equal to the chunked path's except among exact ties")
+    # each step of one search, the chunked path, and their library yardsticks
+    lut_c = lut_bf16.contiguous()
+    G, cap = search_plan(N, topk)
 
-    lut_bf16 = lut.to(torch.bfloat16).contiguous()
+    def passes(groups):
+        gmax = adc_group_max(lut_c, index.codes, N, groups)
+        tau = torch.topk(gmax, topk, dim=1).values[:, -1].contiguous()
+        return gmax, tau, adc_filter(lut_c, index.codes, N, tau, cap, gmax)
+
+    gmax, tau, cand = passes(G)
+    count = cand[2]
+    steps = {
+        "pass1": lambda: adc_group_max(lut_c, index.codes, N, G),
+        "threshold": lambda: torch.topk(gmax, topk, dim=1).values[:, -1]
+        .contiguous(),
+        "threshold_kthvalue": lambda: torch.kthvalue(gmax, G - topk + 1,
+                                                     dim=1).values,
+        "pass2": lambda: adc_filter(lut_c, index.codes, N, tau, cap, gmax),
+        "final_sort": lambda: select_topk(cand[0], cand[1], topk),
+        "adc_topk": lambda: adc_topk(lut_c, index.codes, N, topk),
+    }
+    step_ms = {k: time_ms(fn, reps=5) for k, fn in steps.items()}
+    sweep, default = {}, cuda_adc.GROUPS_MAX
+    try:
+        for groups in (8192, 16384, 32768, 65536):
+            cuda_adc.GROUPS_MAX = groups
+            ms = time_ms(lambda: adc_topk(lut_c, index.codes, N, topk),
+                         reps=3, warmup=1)
+            c = passes(groups)[2][2]
+            sweep[groups] = dict(ms=ms,
+                                 candidates_mean=float(c.float().mean()),
+                                 candidates_max=int(c.max()))
+    finally:
+        cuda_adc.GROUPS_MAX = default
+    del gmax, cand
+    unfused_ms = time_ms(lambda: unfused_search(lut_c, index.codes, N, topk,
+                                                index.chunk), reps=3, warmup=1)
     chunk_codes = index.codes[:index.chunk]
-    scan_ms = time_ms(lambda: adc_scores(lut_bf16, chunk_codes))
-    scores = adc_scores(lut_bf16, chunk_codes)
-    topk_ms = time_ms(lambda: torch.topk(scores, topk, dim=1, sorted=False))
-    emit("full_scan", N=MSMARCO_PASSAGES, M=M, K=K, Q=Q, topk=topk,
-         chunks=nc, chunk=index.chunk, codes_mb=index.codes.numel() / 1e6,
-         search_s=search_s, queries_per_s=Q / search_s,
-         ms_per_chunk=search_s * 1e3 / nc, chunk_scan_ms=scan_ms,
-         chunk_topk_ms=topk_ms, rescore_max_abs_err=err)
-    del index, s, i, lut, picked, resum, lut_bf16, chunk_codes, scores
+    scan_ms = time_ms(lambda: adc_scores(lut_c, chunk_codes))
+    scores = adc_scores(lut_c, chunk_codes)
+    chunk_topk_ms = time_ms(lambda: torch.topk(scores, topk, dim=1,
+                                               sorted=False))
+    del scores
     torch.cuda.empty_cache()
+    # the same search from library calls: embedding_bag + torch.topk
+    weight = lut.reshape(Q, M * K).T.contiguous()          # (M * K, Q)
+    doc_codes = (index.codes[:N].long()
+                 + torch.arange(M, device=dev) * K)        # (N, M), 849 MB
+    library_search_ms = time_ms(lambda: library_search(
+        weight, doc_codes, topk, index.chunk), reps=1, warmup=1)
+    s_l, _ = library_search(weight, doc_codes, topk, index.chunk)
+    library_search_err = float((s_l - s).abs().max())
+    emit("full_scan", N=N, M=M, K=K, Q=Q, topk=topk, groups=G,
+         cap=cap, codes_mb=index.codes.numel() / 1e6,
+         search_s=search_s, search_s_all=times, queries_per_s=Q / search_s,
+         launches=launches, step_ms=step_ms,
+         candidates_mean=float(count.float().mean()),
+         candidates_max=int(count.max()), reruns=launches["adc_topk_reruns"],
+         groups_sweep=sweep, rescore_max_abs_err=err,
+         chunked_search_ms=unfused_ms,
+         chunked_queries_per_s=Q / (unfused_ms / 1e3), chunk=index.chunk,
+         chunk_scan_ms=scan_ms, chunk_topk_ms=chunk_topk_ms,
+         library_search_ms=library_search_ms,
+         library_search_max_abs_err=library_search_err)
+    del index, s, i, lut, lut_bf16, lut_c, s_u, i_u, weight, doc_codes, s_l
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, library_search_ms=library_search_ms,
+                launches=launches)
 
 
 class HashTokenizer:
@@ -252,7 +567,7 @@ class HashTokenizer:
                                    for r in rows]}
 
 
-def synthetic_data(n_docs: int = 8192, n_queries: int = 256):
+def synthetic_data(n_docs: int = 65_536, n_queries: int = 256):
     """Docs of 16-128 words from a Zipf-like vocabulary; each query is a
     prefix of one doc, which is its only judged-relevant doc."""
     import numpy as np
@@ -313,7 +628,8 @@ def phase_main_path(dev):
         encode_batch=256, search_batch=1200, device=dev, stopwatch=sw)
     torch.cuda.synchronize()
     launches = launch_counts()
-    check(launches["adc_scan"] > 0, "main path launched K1")
+    check(launches["adc_group_max"] > 0 and launches["adc_filter"] > 0,
+          f"main path launched both passes of the K1 top-k ({launches})")
     check(codes.shape == (len(corpus), 12) and codes.dtype == np.uint8,
           "corpus codes (N, M) uint8")
     check(len(run) == len(queries) and all(
@@ -365,14 +681,6 @@ def phase_main_path(dev):
     return dict(launches=launches, codes=codes, corpus_ids=corpus_ids,
                 query_ids=query_ids, q_embeds=q_embeds, qrels=qrels,
                 centroids=model.centroids.detach().cpu().numpy(), plain=plain)
-
-
-def bound_ms(nbytes: float, adds: float):
-    """(least time in ms, "bytes" or "operations") on an H100 SXM: the
-    bytes over HBM's rate against the adds at the fp32 rate."""
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = adds / H100_FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def ivf_bound(work_cell, qidx, Qz: int, Lpad: int, M: int, K: int,
@@ -502,20 +810,30 @@ def phase_ivf_checks(dev):
 
 
 def launch_counts():
-    from repconc_tpu_torch.index.cuda_adc import adc_scores, adc_scores_int8
+    from repconc_tpu_torch.index.cuda_adc import (adc_filter, adc_group_max,
+                                                  adc_scores, adc_scores_int8,
+                                                  adc_topk)
     from repconc_tpu_torch.index.cuda_ivf import score_work_tiles
 
     return {"adc_scan": adc_scores.launches,
+            "adc_group_max": adc_group_max.launches,
+            "adc_filter": adc_filter.launches,
+            "adc_topk_reruns": adc_topk.reruns,
             "ivf_scan_bf16": score_work_tiles.launches["bf16"],
             "ivf_scan_i8": score_work_tiles.launches["int8"],
             "adc_scan_i8": adc_scores_int8.launches}
 
 
 def reset_launches():
-    from repconc_tpu_torch.index.cuda_adc import adc_scores, adc_scores_int8
+    from repconc_tpu_torch.index.cuda_adc import (adc_filter, adc_group_max,
+                                                  adc_scores, adc_scores_int8,
+                                                  adc_topk)
     from repconc_tpu_torch.index.cuda_ivf import score_work_tiles
 
     adc_scores.launches = 0
+    adc_group_max.launches = 0
+    adc_filter.launches = 0
+    adc_topk.reruns = 0
     adc_scores_int8.launches = 0
     score_work_tiles.launches = {"bf16": 0, "int8": 0}
 
@@ -683,15 +1001,43 @@ def ivf_breakdown(index, queries, nprobe: int, topk: int):
                                                      ivf.cell_codes),
         "regroup_topk": lambda: cuda_ivf.regroup_topk(
             flat, row, cells, ivf.cell_ids, Q, nprobe, topk),
-        "spill_k1_merge": lambda: cuda_ivf.merge_spill(
+        "spill_topk_merge": lambda: cuda_ivf.merge_spill(
             s, i, ivf.spill, ivf.spill_ids, queries, topk),
         "whole_search": lambda: ivf.search_device(queries, topk, nprobe),
     }
     out = {name: time_ms(fn, reps=3, warmup=1) for name, fn in steps.items()}
+    out["spill_steps"] = spill_breakdown(ivf.spill, queries, topk)
     out["tiles"] = int(work_cell.shape[0])
     out["score_buffer_gb"] = scores.numel() * 4 / 1e9
     del ivf, scores, flat, s, i
     torch.cuda.empty_cache()
+    return out
+
+
+def spill_breakdown(spill, queries, topk: int):
+    """The spill's adc_topk step by step (CUDA events, median of 3)."""
+    import torch
+    from repconc_tpu_torch.index.adc import build_lut
+    from repconc_tpu_torch.index.cuda_adc import (adc_filter, adc_group_max,
+                                                  adc_topk, search_plan,
+                                                  select_topk)
+
+    lut = build_lut(queries, spill.centroids).to(torch.bfloat16).contiguous()
+    N = spill.N
+    G, cap = search_plan(N, topk)
+    gmax = adc_group_max(lut, spill.codes, N, G)
+    tau = torch.topk(gmax, topk, dim=1).values[:, -1].contiguous()
+    cand = adc_filter(lut, spill.codes, N, tau, cap, gmax)
+    steps = {
+        "lut": lambda: build_lut(queries, spill.centroids).to(torch.bfloat16),
+        "pass1": lambda: adc_group_max(lut, spill.codes, N, G),
+        "threshold": lambda: torch.topk(gmax, topk, dim=1).values[:, -1],
+        "pass2": lambda: adc_filter(lut, spill.codes, N, tau, cap, gmax),
+        "final_sort": lambda: select_topk(cand[0], cand[1], topk),
+        "adc_topk": lambda: adc_topk(lut, spill.codes, N, topk),
+    }
+    out = {name: time_ms(fn, reps=3, warmup=1) for name, fn in steps.items()}
+    out.update(N=N, groups=G, cap=cap, candidates_max=int(cand[2].max()))
     return out
 
 
@@ -799,6 +1145,14 @@ KERNELS = [  # name, source, replaces, the TPU function
     ("adc_scan", "repconc_tpu_torch/csrc/adc_scan.cu",
      "repconc_tpu/index/pallas_adc.py:89",
      "_adc_onehot_kernel via adc_scores_pallas"),
+    ("adc_group_max", "repconc_tpu_torch/csrc/adc_scan.cu",
+     "repconc_tpu/index/pallas_adc.py:89",
+     "_adc_onehot_kernel and the chunk loop of _search_device "
+     "(pallas_adc.py:229-260): pass 1"),
+    ("adc_filter", "repconc_tpu_torch/csrc/adc_scan.cu",
+     "repconc_tpu/index/pallas_adc.py:89",
+     "_adc_onehot_kernel and the chunk loop of _search_device "
+     "(pallas_adc.py:229-260): pass 2"),
     ("ivf_scan_bf16", "repconc_tpu_torch/csrc/ivf_scan.cu",
      "repconc_tpu/index/pallas_ivf.py:90",
      "_ivf_kernel via _score_work_tiles"),
@@ -809,6 +1163,17 @@ KERNELS = [  # name, source, replaces, the TPU function
      "repconc_tpu/index/pallas_adc.py:107",
      "_adc_onehot_kernel_i8 via adc_scores_pallas_int8"),
 ]
+NO_LIBRARY = {  # why a kernel has no one-call PyTorch yardstick
+    "adc_group_max": "no single PyTorch call takes group maxima of ADC "
+                     "scores (embedding_bag, then scatter_reduce)",
+    "adc_filter": "no single PyTorch call keeps the docs above a threshold "
+                  "(embedding_bag, a comparison, nonzero)",
+    "ivf_scan_bf16": "no single PyTorch call gathers per-tile LUTs",
+    "ivf_scan_i8": "no single PyTorch call gathers per-tile LUTs with "
+                   "per-group scales",
+    "adc_scan_i8": "no single PyTorch call sums int8 LUT entries per group "
+                   "and scales the groups",
+}
 
 
 def main() -> int:
@@ -828,29 +1193,37 @@ def main() -> int:
     build_all()
 
     k1, worst = phase_k1_check(dev)
+    topk_checks = phase_k1_topk_check(dev)
     checks = phase_ivf_checks(dev)
-    phase_full_scan(dev)
+    full_scan = phase_full_scan(dev)
     ivf_scale = phase_ivf_scale(dev)
     main_path = phase_main_path(dev)
     ivf_runs = phase_ivf_main_path(dev, main_path)
 
-    # launches on the paths: K1 on the flat main path (phase 4), K2 on the
-    # IVF path with the bf16 LUT and K3 on it with the int8 LUT (phase 7).
-    # K4 is on no path (none in the JAX package either): its launches there
-    # must stay 0, and k4_check holds it against its plain version
+    # launches on the paths: both passes of the K1 top-k on the flat main
+    # path (phase 4), K2 on the IVF path with the bf16 LUT and K3 on it with
+    # the int8 LUT (phase 7). K1's score-returning scan is on no path since
+    # the two passes took its place; K4 is on no path (none in the JAX
+    # package either). Their launches there must stay 0; k1_check and
+    # k4_check hold them against their plain versions
+    on_paths = [main_path["launches"], *ivf_runs.values(),
+                *(r["launches"] for r in ivf_scale.values())]
     launches = {
-        "adc_scan": (main_path["launches"]["adc_scan"], "main_path"),
+        "adc_scan": (sum(r["adc_scan"] for r in on_paths), None),
+        "adc_group_max": (main_path["launches"]["adc_group_max"],
+                          "main_path"),
+        "adc_filter": (main_path["launches"]["adc_filter"], "main_path"),
         "ivf_scan_bf16": (ivf_runs["full_bf16"]["ivf_scan_bf16"],
                           "ivf_main_path full_bf16"),
         "ivf_scan_i8": (ivf_runs["full_int8"]["ivf_scan_i8"],
                         "ivf_main_path full_int8"),
-        "adc_scan_i8": (sum(r["adc_scan_i8"] for r in ivf_runs.values())
-                        + sum(r["launches"]["adc_scan_i8"]
-                              for r in ivf_scale.values()), None),
+        "adc_scan_i8": (sum(r["adc_scan_i8"] for r in on_paths), None),
     }
     timed = {
         "adc_scan": dict(k1[(1200, 1 << 17, 12)], max_abs_err=worst,
                          shape={"Q": 1200, "N": 1 << 17, "M": 12, "K": 256}),
+        "adc_group_max": topk_checks["full"]["adc_group_max"],
+        "adc_filter": topk_checks["full"]["adc_filter"],
         "ivf_scan_bf16": checks["ivf_scan_bf16"]["bench"],
         "ivf_scan_i8": checks["ivf_scan_i8"]["bench"],
         "adc_scan_i8": checks["adc_scan_i8"][(1200, 1 << 17, 12)],
@@ -858,6 +1231,20 @@ def main() -> int:
     for name in ("ivf_scan_bf16", "ivf_scan_i8", "adc_scan_i8"):
         timed[name] = dict(timed[name], max_abs_err=max(
             r["max_abs_err"] for r in checks[name].values()))
+    elsewhere = {  # launches of the passes outside the main path
+        "full_scan": {k: full_scan["launches"][k]
+                      for k in ("adc_group_max", "adc_filter")},
+        "ivf_scale": {lut: {k: r["launches"][k]
+                            for k in ("adc_group_max", "adc_filter")}
+                      for lut, r in ivf_scale.items()},
+        "ivf_main_path": {name: {k: r[k] for k in ("adc_group_max",
+                                                   "adc_filter")}
+                          for name, r in ivf_runs.items()},
+    }
+    check(all(v > 0 for v in elsewhere["full_scan"].values())
+          and all(v > 0 for r in elsewhere["ivf_scale"].values()
+                  for v in r.values()),
+          f"full_scan and the ivf_scale spill ran both passes ({elsewhere})")
     line = []
     for name, source, replaces, function in KERNELS:
         n, path = launches[name]
@@ -866,14 +1253,23 @@ def main() -> int:
         else:
             check(n > 0, f"{name} launched on its path ({path})")
         t = timed[name]
-        line.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "replaces_function": function,
-                     "launches": n, "launches_in": path,
-                     "on_path": path is not None,
-                     "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                     "bound_by": t["bound_by"], "library_ms": None,
-                     "shape": t["shape"]})
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "replaces_function": function,
+                 "launches": n, "launches_in": path,
+                 "on_path": path is not None,
+                 "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                 "bound_by": t["bound_by"],
+                 "library_ms": t.get("library_ms"), "shape": t["shape"]}
+        if name in NO_LIBRARY:
+            entry["library_null_because"] = NO_LIBRARY[name]
+        else:
+            entry["library_call"] = t["library_call"]
+            entry["library_max_abs_err"] = t["library_max_abs_err"]
+        if name in ("adc_group_max", "adc_filter"):
+            entry["launches_elsewhere"] = {
+                k: v for k, v in elsewhere.items()}
+        line.append(entry)
     print(json.dumps({"kernels": line}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,18 +18,27 @@ reimplementation:
   and taking the reciprocal rank of the first relevant doc, matching the
   reference's `truncate_run` + recip_rank composition (eval_utils.py:136-141).
 
-The port's own copy of repconc_tpu/eval/trec.py. The JAX package's C++
-backend for large run files (repconc_tpu/native) is not carried over: every
-input is evaluated here in Python.
+The port's own copy of repconc_tpu/eval/trec.py. Where the JAX package
+sends a large run file to its C++ backend (repconc_tpu/native/
+trec_eval.cpp), the port sends it to `evaluate_files`, a vectorised numpy
+evaluator with that backend's semantics and result: same dispatch rule,
+same values, an empty "perquery".
 """
 from __future__ import annotations
 
 import math
+import os
+import re
 from collections import defaultdict
 from typing import Dict, Mapping, Tuple, Union
 
+import numpy as np
+
 QrelsT = Mapping[str, Mapping[str, int]]
 RunT = Mapping[str, Mapping[str, float]]
+
+# file-path evaluate_run calls above this run.tsv size take evaluate_files
+_NATIVE_MIN_RUN_BYTES = 50 * 1024 * 1024
 
 def parse_qrels(path: str) -> Dict[str, Dict[str, int]]:
     """Parse a TREC qrels file: `qid  iter  docid  rel` (whitespace-separated)."""
@@ -148,7 +157,24 @@ def evaluate_run(
     "precision": ..., "mrr": {"MRR@k": v}, "perquery": {qid: {...}}},
     values rounded to 5 decimals, averaged over evaluated queries
     (reference: eval_utils.py:144-201).
+
+    File-path inputs whose run is above _NATIVE_MIN_RUN_BYTES go to
+    `evaluate_files`, as the JAX package sends them to its C++ backend; the
+    result then carries "num_queries" and an empty "perquery". The JAX
+    package evaluates them in Python, perquery kept, when it finds no
+    compiler; `evaluate_files` needs none, so here that case does not
+    arise.
     """
+    if isinstance(qrel, str) and isinstance(run, str):
+        try:
+            big = os.path.getsize(run) > _NATIVE_MIN_RUN_BYTES
+        except OSError:
+            big = False
+        if big:
+            m = evaluate_files(qrel, run, tuple(k_values), tuple(mrr_k_values),
+                               relevance_level)
+            m["perquery"] = {}
+            return m
     if isinstance(qrel, str):
         qrel = parse_qrels(qrel)
     if isinstance(run, str):
@@ -201,3 +227,184 @@ def evaluate_run(
         "mrr": mrr,
         "perquery": perquery,
     }
+
+
+# ---------------------------------------------------------------------------
+# Large run files: the semantics of repconc_tpu/native/trec_eval.cpp
+# ---------------------------------------------------------------------------
+
+_LEADING_INT = re.compile(r"[+-]?\d+")
+_LEADING_FLOAT = re.compile(
+    r"[+-]?(?:(?:\d+\.?\d*|\.\d+)(?:[eE][+-]?\d+)?|inf(?:inity)?|nan)",
+    re.IGNORECASE)
+
+
+def _scan_int(tok: str):
+    """sscanf's %ld: the leading decimal integer of `tok`, else None."""
+    m = _LEADING_INT.match(tok)
+    return int(m.group()) if m else None
+
+
+def _scan_float(tok: str):
+    """sscanf's %lf on a decimal token: its leading number, else None."""
+    try:
+        return float(tok)
+    except ValueError:
+        m = _LEADING_FLOAT.match(tok)
+        return float(m.group()) if m else None
+
+
+def _read_qrels_columns(path: str):
+    """(qids, docids, rels) of the lines `qid iter docid rel`; a line
+    without four fields or an integer rel is skipped, never cuts the file."""
+    qids, docids, rels = [], [], []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) < 4:
+                continue
+            rel = _scan_int(parts[3])
+            if rel is None:
+                continue
+            qids.append(parts[0])
+            docids.append(parts[2])
+            rels.append(rel)
+    return qids, docids, np.array(rels, dtype=np.int64)
+
+
+def _read_run_columns(path: str):
+    """(qids, docids, scores) of the lines `qid Q0 docid rank score ...`; a
+    line without an integer rank and a numeric score is skipped."""
+    qids, docids, scores = [], [], []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) < 5 or _scan_int(parts[3]) is None:
+                continue
+            score = _scan_float(parts[4])
+            if score is None:
+                continue
+            qids.append(parts[0])
+            docids.append(parts[2])
+            scores.append(score)
+    return qids, docids, np.array(scores, dtype=np.float64)
+
+
+def _last_of_each(keys: np.ndarray) -> np.ndarray:
+    """Indices of the last occurrence of each distinct key, in key order
+    (a repeated line keeps its last value, as a dict does)."""
+    _, first_rev = np.unique(keys[::-1], return_index=True)
+    return len(keys) - 1 - first_rev
+
+
+def _round5(v: float) -> float:
+    """std::round(v * 1e5) / 1e5 for v >= 0 (halves away from zero)."""
+    x = v * 100000.0
+    r = math.floor(x)
+    return (r + (1 if x - r >= 0.5 else 0)) / 100000.0
+
+
+def _group_starts(sorted_groups: np.ndarray) -> np.ndarray:
+    """Index of the first row of each row's group (rows sorted by group)."""
+    n = len(sorted_groups)
+    first = np.ones(n, dtype=bool)
+    first[1:] = sorted_groups[1:] != sorted_groups[:-1]
+    return np.maximum.accumulate(np.where(first, np.arange(n), 0))
+
+
+def evaluate_files(qrel_path: str, run_path: str,
+                   k_values: Tuple[int, ...] = (1, 3, 5, 10, 100),
+                   mrr_k_values: Tuple[int, ...] = (10, 100),
+                   relevance_level: int = 1) -> Dict[str, object]:
+    """Metrics of a qrels file and a run file, vectorised over all lines.
+
+    The semantics of trec_eval.cpp's header: rank by score DESC, docid
+    string DESC; average over the queries in both the run and the qrels;
+    graded NDCG gains; MAP divided by all relevant docs; MRR@k of the
+    top-k; a repeated (qid, docid) keeps its last line; a malformed line
+    is skipped. Returns the five metric groups, rounded to 5 decimals as
+    the C++ backend rounds, and "num_queries" (no "perquery").
+    """
+    k_values, mrr_k_values = tuple(k_values), tuple(mrr_k_values)
+    qq, qd, rel = _read_qrels_columns(qrel_path)
+    rq, rd, score = _read_run_columns(run_path)
+    qnames = np.unique(np.array(qq + rq, dtype=str))
+    dnames = np.unique(np.array(qd + rd, dtype=str))  # id order = string order
+    nd = max(len(dnames), 1)
+
+    def keys(qs, ds):
+        q = np.searchsorted(qnames, np.array(qs, dtype=str)).astype(np.int64)
+        d = np.searchsorted(dnames, np.array(ds, dtype=str)).astype(np.int64)
+        return q * nd + d
+
+    qrel_key = keys(qq, qd)
+    keep = _last_of_each(qrel_key)
+    qrel_key, rel = qrel_key[keep], rel[keep]
+    run_key = keys(rq, rd)
+    keep = _last_of_each(run_key)
+    run_key, score = run_key[keep], score[keep]
+
+    evaluated = np.intersect1d(np.unique(qrel_key // nd), np.unique(run_key // nd))
+    nq = len(evaluated)
+    groups = {"ndcg": ("NDCG", k_values), "map": ("MAP", k_values),
+              "recall": ("Recall", k_values), "precision": ("P", k_values),
+              "mrr": ("MRR", mrr_k_values)}
+    sums = {g: np.zeros(len(cuts)) for g, (_, cuts) in groups.items()}
+    if nq:
+        # the run's lines of evaluated queries, ranked within each query
+        on = np.isin(run_key // nd, evaluated)
+        run_key, score = run_key[on], score[on]
+        q_run = np.searchsorted(evaluated, run_key // nd)
+        order = np.lexsort((-(run_key % nd), -score, q_run))
+        run_key, q_run = run_key[order], q_run[order]
+        idx = np.arange(len(run_key))
+        rank = idx - _group_starts(q_run) + 1
+        pos = np.minimum(np.searchsorted(qrel_key, run_key), len(qrel_key) - 1)
+        line_rel = np.where(qrel_key[pos] == run_key, rel[pos], 0)
+        is_rel = line_rel >= relevance_level
+        cum = np.cumsum(is_rel)
+        hits_at = cum - np.where(_group_starts(q_run) > 0,
+                                 cum[_group_starts(q_run) - 1], 0)
+        gain = np.where(line_rel > 0, line_rel / np.log2(rank + 1.0), 0.0)
+        prec_at_hit = np.where(is_rel, hits_at / rank, 0.0)
+
+        # each evaluated query's qrels: relevant count and ideal gains
+        on = np.isin(qrel_key // nd, evaluated)
+        q_rel = np.searchsorted(evaluated, qrel_key[on] // nd)
+        r = rel[on]
+        num_rel = np.bincount(q_rel, weights=r >= relevance_level,
+                              minlength=nq)
+        pos_g = r > 0
+        q_g, g = q_rel[pos_g], r[pos_g]
+        order = np.lexsort((-g, q_g))
+        q_g, g = q_g[order], g[order]
+        ideal_rank = np.arange(len(g)) - _group_starts(q_g)
+        ideal_gain = g / np.log2(ideal_rank + 2.0)
+
+        def per_query(weights):
+            return np.bincount(q_run, weights=weights, minlength=nq)
+
+        with np.errstate(divide="ignore", invalid="ignore"):
+            for j, k in enumerate(k_values):
+                in_k = rank <= k
+                hits = per_query(is_rel & in_k)
+                dcg = per_query(np.where(in_k, gain, 0.0))
+                ap = per_query(np.where(in_k, prec_at_hit, 0.0))
+                idcg = np.bincount(q_g, weights=np.where(ideal_rank < k,
+                                                         ideal_gain, 0.0),
+                                   minlength=nq)
+                sums["ndcg"][j] = np.where(idcg > 0, dcg / idcg, 0.0).sum()
+                sums["map"][j] = np.where(num_rel > 0, ap / num_rel, 0.0).sum()
+                sums["recall"][j] = np.where(num_rel > 0, hits / num_rel,
+                                             0.0).sum()
+                sums["precision"][j] = (hits / k).sum()
+            first = np.full(nq, np.inf)
+            np.minimum.at(first, q_run[is_rel], rank[is_rel].astype(np.float64))
+            for j, cut in enumerate(mrr_k_values):
+                sums["mrr"][j] = np.where(first <= cut, 1.0 / first, 0.0).sum()
+    out: Dict[str, object] = {}
+    for g, (prefix, cuts) in groups.items():
+        out[g] = {f"{prefix}@{c}": (_round5(float(v) / nq) if nq else 0.0)
+                  for c, v in zip(cuts, sums[g])}
+    out["num_queries"] = nq
+    return out

@@ -9,6 +9,9 @@ query q is
 index/cuda_adc.py (the port of the TPU kernel `_adc_onehot_kernel`), and
 `score_codes_int8_reference` that of its int8-LUT twin (the port of
 `_adc_onehot_kernel_i8`), with the LUT from `quantize_lut_int8`.
+`adc_group_max_reference` and `adc_filter_reference` are the plain versions
+of the two passes of the fused top-k (cuda_adc.py::adc_topk), built on
+`score_codes_reference`.
 """
 from __future__ import annotations
 
@@ -46,6 +49,47 @@ def score_codes_reference(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tenso
     for m in range(codes.shape[1]):
         acc += lut[:, m].index_select(1, idx[:, m])
     return acc
+
+
+RUN = 32  # docs per run: group g of G holds runs g, g + G, g + 2G, ...
+
+
+def doc_groups(n: int, groups: int, device=None) -> torch.Tensor:
+    """The group of each of docs 0..n-1: (doc // RUN) % groups."""
+    return (torch.arange(n, device=device) // RUN) % groups
+
+
+def adc_group_max_reference(lut: torch.Tensor, codes: torch.Tensor,
+                            n_valid: int, groups: int) -> torch.Tensor:
+    """gmax (Q, groups) f32: the largest score of each group's valid docs
+    (docs 0..n_valid-1; a group with none is -inf)."""
+    scores = score_codes_reference(lut, codes[:n_valid])
+    gmax = torch.full((lut.shape[0], groups), -torch.inf, device=lut.device)
+    index = doc_groups(n_valid, groups, lut.device).expand_as(scores)
+    return gmax.scatter_reduce_(1, index, scores, "amax")
+
+
+def adc_filter_reference(lut: torch.Tensor, codes: torch.Tensor,
+                         n_valid: int, tau: torch.Tensor, cap: int):
+    """Every valid doc with score >= tau[q], per query.
+
+    Returns (cand_s (Q, cap) f32, cand_i (Q, cap) int64, count (Q,) int32):
+    count[q] docs pass; the first min(count[q], cap) of them, in id order,
+    fill the first slots; the other slots hold -inf and id -1. The CUDA pass
+    stores the same set in arrival order, and, past cap, another subset of
+    it.
+    """
+    scores = score_codes_reference(lut, codes[:n_valid])
+    hit = scores >= tau[:, None]
+    slot = hit.cumsum(1) - 1
+    keep = hit & (slot < cap)
+    Q = lut.shape[0]
+    cand_s = torch.full((Q, cap), -torch.inf, device=lut.device)
+    cand_i = torch.full((Q, cap), -1, dtype=torch.long, device=lut.device)
+    rows, docs = keep.nonzero(as_tuple=True)
+    cand_s[rows, slot[rows, docs]] = scores[rows, docs]
+    cand_i[rows, slot[rows, docs]] = docs
+    return cand_s, cand_i, hit.sum(1).to(torch.int32)
 
 
 def group_size(M: int, K: int) -> int:

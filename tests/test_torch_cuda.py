@@ -194,3 +194,98 @@ def test_ivf_full_probe_equals_flat_index(cuda):
     for r in range(len(q)):  # ids differ only among docs tied at the cut
         above = s_flat[r] > s_flat[r, -1]
         assert set(i_ivf[r][above]) == set(i_flat[r][above]), r
+
+
+def _pass_inputs(dev, Q, N, M, npad, dup_rows=0, seed=0):
+    """A bf16 LUT and N + npad code rows (npad pad rows past n_valid = N);
+    with dup_rows, the first dup_rows rows repeat through the corpus, so
+    each score is shared by many docs (exact ties at tau)."""
+    g = torch.Generator(device=dev).manual_seed(seed + Q * 13 + N + M)
+    lut = torch.randn((Q, M, 256), generator=g, device=dev).to(torch.bfloat16)
+    codes = torch.randint(0, 256, (N + npad, M), generator=g, device=dev,
+                          dtype=torch.uint8)
+    if dup_rows:
+        reps = -(-N // dup_rows)
+        codes[:N] = codes[:dup_rows].repeat(reps, 1)[:N]
+    return lut, codes
+
+
+def _same_candidates(got, want, cap):
+    """(cand_s, cand_i, count) of the kernel against the plain version:
+    counts equal; the stored slots are the same set of ids with bit-equal
+    scores (within cap), or, past cap, cap distinct passing ids whose
+    scores are their plain scores."""
+    (s_g, i_g, c_g), (s_w, i_w, c_w) = got, want
+    assert torch.equal(c_g.cpu(), c_w.cpu())
+    for q in range(s_g.shape[0]):
+        n = min(int(c_w[q]), cap)
+        assert bool((i_g[q, n:] == -1).all()) and bool(
+            torch.isinf(s_g[q, n:]).all())
+        ids, order = torch.sort(i_g[q, :n])
+        if int(c_w[q]) <= cap:
+            assert torch.equal(ids, i_w[q, :n])
+            assert torch.equal(s_g[q, :n][order], s_w[q, :n])
+        else:
+            assert torch.unique(ids).numel() == n
+
+
+@pytest.mark.parametrize("Q,N,M,npad,G", [
+    (1, 1, 12, 0, 1), (129, 100_003, 12, 77, 2048), (37, 5003, 48, 5, 64),
+    (9, 7777, 96, 0, 300), (1200, 131072, 12, 0, 4096), (3, 1000, 10, 24, 8)])
+def test_adc_group_max_matches_plain(cuda, Q, N, M, npad, G):
+    """Pass 1 against adc_group_max_reference: bit for bit; pad rows past
+    n_valid belong to no group."""
+    from repconc_tpu_torch.index.adc import adc_group_max_reference
+    from repconc_tpu_torch.index.cuda_adc import adc_group_max
+
+    lut, codes = _pass_inputs(cuda, Q, N, M, npad)
+    codes[N:] = 0  # pad rows: any score, never part of a group
+    before = adc_group_max.launches
+    got = adc_group_max(lut, codes, N, G)
+    torch.cuda.synchronize()
+    assert adc_group_max.launches == before + 1
+    assert torch.equal(got, adc_group_max_reference(lut, codes, N, G))
+
+
+@pytest.mark.parametrize("Q,N,M,npad,dup,cap", [
+    (129, 100_003, 12, 77, 0, 4096), (37, 5003, 48, 5, 0, 64),
+    (9, 7777, 96, 0, 0, 300), (5, 20_000, 12, 0, 40, 100)])
+@pytest.mark.parametrize("with_gmax", [False, True])
+def test_adc_filter_matches_plain(cuda, Q, N, M, npad, dup, cap, with_gmax):
+    """Pass 2 against adc_filter_reference at a threshold from pass 1: the
+    same counts, the same candidate set with bit-equal scores (in another
+    order), and past cap only passing docs; skipping groups by gmax
+    changes nothing."""
+    from repconc_tpu_torch.index.adc import (adc_filter_reference,
+                                             adc_group_max_reference)
+    from repconc_tpu_torch.index.cuda_adc import adc_filter
+
+    lut, codes = _pass_inputs(cuda, Q, N, M, npad, dup_rows=dup)
+    G = 512
+    gmax = adc_group_max_reference(lut, codes, N, G)
+    tau = torch.topk(gmax, 50, dim=1).values[:, -1].contiguous()
+    before = adc_filter.launches
+    got = adc_filter(lut, codes, N, tau, cap, gmax if with_gmax else None)
+    torch.cuda.synchronize()
+    assert adc_filter.launches == before + 1
+    _same_candidates(got, adc_filter_reference(lut, codes, N, tau, cap), cap)
+
+
+@pytest.mark.parametrize("Q,N,M,topk,dup", [
+    (129, 100_003, 12, 1000, 0), (33, 3000, 12, 100, 0),
+    (7, 500, 48, 1000, 0), (16, 50_000, 12, 100, 25)])
+def test_adc_topk_on_card_matches_unfused(cuda, Q, N, M, topk, dup):
+    """The two-pass search against a top-k over the K1 scores: scores bit
+    for bit, ids equal except among exact ties (where the two-pass search
+    takes the lower id); the tied case forces a rerun of pass 2."""
+    from repconc_tpu_torch.index.cuda_adc import adc_topk
+
+    lut, codes = _pass_inputs(cuda, Q, N, M, 64, dup_rows=dup)
+    reruns = adc_topk.reruns
+    s, i = adc_topk(lut, codes, N, topk)
+    scores = adc_scores(lut, codes[:N])
+    s_ref, _ = torch.topk(scores, min(topk, N), dim=1)
+    assert torch.equal(s, s_ref)
+    assert torch.equal(torch.gather(scores, 1, i), s)
+    assert bool((i[:, 1:] > i[:, :-1])[s[:, 1:] == s[:, :-1]].all())
+    assert adc_topk.reruns == reruns + (1 if dup else 0)
