@@ -8,7 +8,8 @@ shows where it stopped:
 
   0 device      no GPU -> exit 1 at once; the card's name and power limit
   1 build       nvcc builds every kernel, all sources at once: K1
-                csrc/adc_scan.cu, K2 and K3 csrc/ivf_scan.cu, K4
+                csrc/adc_scan.cu, K2 and K3 and their passes
+                csrc/ivf_scan.cu, K4
                 csrc/adc_scan_i8.cu; ptxas registers and spills
   2 k1_check    K1 against its plain PyTorch version on the card, at M=12
                 (Q x N grid), M=48, M=96 and one chunk of the full scan:
@@ -36,24 +37,37 @@ shows where it stopped:
                 against the CPU (proves TF32 is off), TREC run written and
                 scored
   5 k2_check, k3_check, k4_check
-                K2 / K3 (cell-grouped IVF scan, bf16 / int8 LUT) and K4 (int8
-                brute-force scan) against their plain versions, at the IVF
-                bench geometry (M=48, nlist=4096, Lpad=256, Q=1200,
-                nprobe=64, pairs from a real probe), an M=12 layout with
-                Lpad=2048, Lpad=640 and a single occupied slot: scores to
-                rtol=atol=1e-5; kernel, plain and bound times
+                K2 / K3 (cell-grouped IVF scan writing every score, bf16 /
+                int8 LUT) and K4 (int8 brute-force scan) against their plain
+                versions, at the IVF bench geometry (M=48, nlist=4096,
+                Lpad=256, Q=1200, nprobe=64, pairs from a real probe), an
+                M=12 layout with Lpad=2048, Lpad=640 and a single occupied
+                slot: scores to rtol=atol=1e-5; kernel, plain and bound
+                times, and the LUT bytes each tile re-stages
+  5b ivf_topk_check
+                the two passes of the fused IVF top-k (ivf_group_max,
+                ivf_filter), bf16 and int8, against their plain versions
+                (gmax bit for bit, the same candidate sets with bit-equal
+                scores, the same counts) at M=48 (the bench geometry, where
+                pass 1 is skipped), M=12 with Lpad=2048, exact ties that
+                force a rerun, and tau = -inf; ivf_topk against K2 / K3 +
+                regroup_topk (scores bit for bit, ids except tie order);
+                ms, plain ms, bound, candidates, reruns
   6 ivf_scale   IVF-PQ over 8,841,823 random M=12 codes: build_ivf_from_codes
                 (nlist=4096) on the card, then serve_search of 1200 queries,
                 nprobe=64, top-1000, bf16 and int8 LUTs; checks that the
                 scores re-sum with each run's own LUT (int8 and its scales
                 for the cells' docs, bf16 for the spill, which adc_topk
-                scans),
-                the ids lie in probed cells or the spill, the
+                scans), the ids lie in probed cells or the spill, the
                 top-1000 of 64 queries is the exact top-1000 of their probed
-                cells and the spill, and int8 top-100 overlaps bf16's
+                cells and the spill, and int8 top-100 overlaps bf16's; the
+                breakdown holds the fused top-k to K2 / K3 + regroup_topk on
+                all 1200 queries, times each step of both, and reads the
+                peak device memory of one search of each
   7 ivf_main_path
                 the CLI's own IVF branch (run_repconc_eval.search_ivf) on
-                phase 4's codes and query embeddings, nlist=64: at full probe
+                phase 4's codes and query embeddings, nlist=64, through the
+                two IVF passes (K2 / K3 unfused: 0 launches): at full probe
                 the ranking equals the flat ranking except near-ties; the
                 int8 LUT run and nprobe=8 recall; every run's scores
                 re-summed as in phase 6; TREC run written and scored
@@ -231,14 +245,13 @@ def phase_k1_check(dev):
     return results, worst
 
 
-def same_candidates(got, want, lut, codes, cap: int, what: str) -> None:
+def same_candidates(got, want, what: str, plain=None) -> None:
     """Pass 2 on the card (got) against its plain version (want), each
     (cand_s, cand_i, count): equal counts; min(count, cap) slots filled and
     the rest -inf / -1; where count <= cap the same ids with bit-equal
     scores (the kernel stores them in arrival order); past cap, distinct ids
-    whose scores are their plain scores."""
+    whose scores are, where `plain(r, ids)` gives them, their plain scores."""
     import torch
-    from repconc_tpu_torch.index.adc import score_codes_reference
 
     (s_g, i_g, c_g), (s_w, i_w, c_w) = got, want
     check(torch.equal(c_g, c_w), f"{what}: counts equal")
@@ -262,8 +275,9 @@ def same_candidates(got, want, lut, codes, cap: int, what: str) -> None:
     for r in torch.nonzero(~under).flatten().tolist():
         ids = ids_g[r]
         check(bool((ids[1:] != ids[:-1]).all()), f"{what}: distinct ids")
-        plain = score_codes_reference(lut[r:r + 1], codes[ids])[0]
-        check(torch.equal(plain, s_gs[r]), f"{what}: past cap, plain scores")
+        if plain is not None:
+            check(torch.equal(plain(r, ids), s_gs[r]),
+                  f"{what}: past cap, plain scores")
 
 
 def plain_in_slices(fn, Q: int, rows: int):
@@ -281,7 +295,8 @@ def phase_k1_topk_check(dev):
     against a top-k over K1's scores."""
     import torch
     from repconc_tpu_torch.index.adc import (adc_filter_reference,
-                                             adc_group_max_reference)
+                                             adc_group_max_reference,
+                                             score_codes_reference)
     from repconc_tpu_torch.index.cuda_adc import (adc_filter, adc_group_max,
                                                   adc_scores, adc_topk,
                                                   search_plan)
@@ -314,7 +329,8 @@ def phase_k1_topk_check(dev):
         want = plain_in_slices(lambda sl: adc_filter_reference(
             lut[sl], codes, N, tau[sl].contiguous(), cap), Q, rows)
         torch.cuda.synchronize()
-        same_candidates(got, want, lut, codes, cap, what)
+        same_candidates(got, want, what, lambda r, ids: score_codes_reference(
+            lut[r:r + 1], codes[ids])[0])
         count = got[2]
         reruns = adc_topk.reruns
         s, i = adc_topk(lut, codes, N, topk)
@@ -487,6 +503,8 @@ def phase_full_scan(dev):
                                                      dim=1).values,
         "pass2": lambda: adc_filter(lut_c, index.codes, N, tau, cap, gmax),
         "final_sort": lambda: select_topk(cand[0], cand[1], topk),
+        "final_sort_two_sorts": lambda: select_two_sorts(cand[0], cand[1],
+                                                         topk),
         "adc_topk": lambda: adc_topk(lut_c, index.codes, N, topk),
     }
     step_ms = {k: time_ms(fn, reps=5) for k, fn in steps.items()}
@@ -704,7 +722,8 @@ def ivf_bound(work_cell, qidx, Qz: int, Lpad: int, M: int, K: int,
 
 def ivf_geometry(dev, Q, nlist, nprobe, D, seed):
     """Work tiles from a real probe: random coarse centroids and queries,
-    probe_cells, then the exact-grid grouping."""
+    probe_cells, then the exact-grid grouping. Returns (cells, row,
+    work_cell, slot_pair)."""
     import torch
     from repconc_tpu_torch.index.cuda_ivf import group_pairs
     from repconc_tpu_torch.index.ivf import probe_cells
@@ -713,9 +732,12 @@ def ivf_geometry(dev, Q, nlist, nprobe, D, seed):
     coarse = torch.randn((nlist, D), generator=g, device=dev)
     q = torch.randn((Q, D), generator=g, device=dev)
     cells = probe_cells(q, coarse, nprobe)
-    _, work_cell, qidx, overflow = group_pairs(cells, Q, nlist, nprobe)
-    check(int(overflow) == 0, "exact tile grid drops no pair")
-    return work_cell, qidx
+    row, work_cell, slot_pair = group_pairs(cells, Q, nlist, nprobe)
+    pairs = torch.arange(Q * nprobe, device=dev)
+    check(torch.equal(slot_pair.reshape(-1)[row].long(), pairs)
+          and int((slot_pair >= 0).sum()) == Q * nprobe,
+          "exact tile grid: every pair in one slot, none dropped")
+    return cells, row, work_cell, slot_pair
 
 
 def phase_ivf_checks(dev):
@@ -725,7 +747,8 @@ def phase_ivf_checks(dev):
                                              score_codes_int8_reference)
     from repconc_tpu_torch.index.cuda_adc import adc_scores_int8
     from repconc_tpu_torch.index.cuda_ivf import (QT_G, score_work_tiles,
-                                                  score_work_tiles_reference)
+                                                  score_work_tiles_reference,
+                                                  slot_queries)
 
     K = 256
     cases = [  # name, Q, nlist, nprobe, Lpad, M
@@ -743,7 +766,9 @@ def phase_ivf_checks(dev):
             qidx = torch.full((1, QT_G), Q, dtype=torch.int32, device=dev)
             qidx[0, 0] = 0
         else:
-            work_cell, qidx = ivf_geometry(dev, Q, nlist, nprobe, 16 * M, seed)
+            _, _, work_cell, slot_pair = ivf_geometry(dev, Q, nlist, nprobe,
+                                                      16 * M, seed)
+            qidx = slot_queries(slot_pair, nprobe, Q)
         T = work_cell.shape[0]
         codes = torch.randint(0, K, (nlist, Lpad, M), generator=g, device=dev,
                               dtype=torch.uint8)
@@ -775,8 +800,15 @@ def phase_ivf_checks(dev):
                                                    nprobe=nprobe, Lpad=Lpad,
                                                    M=M, K=K))
             results[kname][name] = res
+            # what the kernel moves beyond the bound, counted: each occupied
+            # slot's LUT staged from L2 once per tile, the codes read from
+            # HBM / L2 once per tile and from L1 once per sub-tile
+            occupied = int((~empty).sum())
             emit("k2_check" if kname == "ivf_scan_bf16" else "k3_check",
-                 case=name, occupied_slots=int((~empty).sum()),
+                 case=name, occupied_slots=occupied,
+                 lut_staged_mb=occupied * (M * K * b + G * 4) / 1e6,
+                 tile_codes_mb=T * Lpad * M / 1e6,
+                 score_write_mb=T * QT_G * Lpad * 4 / 1e6,
                  library_ms=None, **res)
             del got, want
         del codes, lut, lut_i8, scales, variants
@@ -809,11 +841,246 @@ def phase_ivf_checks(dev):
     return results
 
 
+def ivf_pass_bounds(work_cell, slot_pair, cell_len, gmax, tau, count,
+                    nprobe: int, Lpad: int, M: int, K: int, lut_bytes: int,
+                    G: int, topk: int):
+    """Least times of the two passes and of the whole ivf_topk on this
+    run's tiles, counting what this data needs: the real docs (the passes
+    never score a pad). Pass 1: each probed cell's real codes read once,
+    each query's LUT once (+ scales), gmax written; the adds of every
+    occupied slot over its cell's real docs. Pass 2: the codes of the
+    (cell, run) pairs that some slot re-scans, the LUT, gmax and tau read
+    once, the candidates written (12 bytes each) and the counts; the adds of
+    each pair's re-scanned runs (gmax >= tau; every run without gmax). The
+    search: codes and LUT read once, the top-k written (12 bytes each),
+    pass 1's adds."""
+    import torch
+
+    dev = work_cell.device
+    Q = tau.shape[0]
+    P, R = Q * nprobe, -(-Lpad // 32)
+    runs_real = (cell_len.long()[:, None]
+                 - 32 * torch.arange(R, device=dev)).clamp(0, 32)
+    occ = slot_pair >= 0
+    pair_cell = torch.zeros(P, dtype=torch.long, device=dev)
+    pair_cell[slot_pair[occ].long()] = work_cell.long()[:, None].expand_as(
+        slot_pair)[occ]
+    pair_runs = runs_real[pair_cell]                          # (P, R)
+    probed = torch.zeros(cell_len.shape[0], dtype=torch.bool, device=dev)
+    probed[pair_cell] = True
+    lut = (Q + 1) * (M * K * lut_bytes + G * 4)
+    codes1 = float(runs_real[probed].sum()) * M
+    adds1 = float(pair_runs.sum()) * M
+    need = (torch.ones((P, R), dtype=torch.bool, device=dev) if gmax is None
+            else gmax.reshape(P, R) >= tau.repeat_interleave(nprobe)[:, None])
+    adds2 = float((pair_runs * need).sum()) * M
+    cell_need = torch.zeros(runs_real.shape, dtype=torch.int32, device=dev)
+    cell_need.index_add_(0, pair_cell, need.int())
+    codes2 = float((runs_real * (cell_need > 0)).sum()) * M
+    gmax_bytes = P * R * 4
+    return {
+        "pass1": bound_ms(codes1 + lut + gmax_bytes, adds1),
+        "pass2": bound_ms(codes2 + lut + gmax_bytes + Q * 4
+                          + float(count.sum()) * 12 + Q * 4, adds2),
+        "search": bound_ms(codes1 + lut + Q * topk * 12, adds1),
+        "pass2_adds_share": adds2 / max(adds1, 1.0),
+    }
+
+
+def same_topk(s, i, s_u, i_u) -> bool:
+    """A fused top-k (s, i) against the unfused one (s_u, i_u): scores bit
+    for bit; the ids above the cut equal as sets; exact finite ties in id
+    order (ivf_topk takes the lower id); -inf only with id -1."""
+    import torch
+
+    big = torch.iinfo(torch.long).max
+    above = s > s[:, -1:]
+    tie = (s[:, 1:] == s[:, :-1]) & torch.isfinite(s[:, 1:])
+    return (torch.equal(s, s_u)
+            and torch.equal(torch.sort(torch.where(above, i, big), 1).values,
+                            torch.sort(torch.where(above, i_u.long(), big),
+                                       1).values)
+            and bool((i[:, 1:] > i[:, :-1])[tie].all())
+            and bool((i[torch.isneginf(s)] == -1).all()))
+
+
+def select_two_sorts(cand_s, cand_i, topk: int):
+    """select_topk's earlier form, kept as its yardstick: a stable sort by
+    id, then a stable sort by score (score DESC, id ASC)."""
+    import torch
+
+    ids, perm = torch.sort(cand_i, dim=1, stable=True)
+    s, perm = torch.sort(torch.gather(cand_s, 1, perm), dim=1,
+                         descending=True, stable=True)
+    return s[:, :topk], torch.gather(ids, 1, perm[:, :topk])
+
+
+def unfused_ivf_search(ivf, queries, nprobe: int, topk: int, lut_dtype: str):
+    """The IVF search before the passes (the earlier ivf_search_device):
+    K2 / K3 score every slot of every tile into a (T, 32, Lpad) buffer,
+    regroup_topk gathers each query's rows back and takes the top-k, then
+    the spill is merged. Kept here as the yardstick of ivf_topk."""
+    from repconc_tpu_torch.index import cuda_ivf
+    from repconc_tpu_torch.index.ivf import probe_cells
+
+    Q = queries.shape[0]
+    cells = probe_cells(queries, ivf.coarse, nprobe)
+    row, work_cell, slot_pair = cuda_ivf.group_pairs(cells, Q, ivf.nlist,
+                                                     nprobe)
+    lut_z, scales_z = cuda_ivf.make_lut_z(queries, ivf.centroids, lut_dtype)
+    scores = cuda_ivf.score_work_tiles(
+        work_cell, cuda_ivf.slot_queries(slot_pair, nprobe, Q), lut_z,
+        ivf.cell_codes, scales_z)
+    s, i = cuda_ivf.regroup_topk(scores.reshape(-1, ivf.cell_codes.shape[1]),
+                                 row, cells, ivf.cell_ids, Q, nprobe, topk)
+    return cuda_ivf.merge_spill(s, i, ivf.spill, ivf.spill_ids, queries, topk)
+
+
+def phase_ivf_topk_check(dev):
+    """The two passes of the fused IVF top-k (ivf_group_max, ivf_filter),
+    bf16 and int8, against their plain versions bit for bit, and ivf_topk
+    against K2 / K3 + regroup_topk on the same tiles; times of each."""
+    import torch
+    from repconc_tpu_torch.index.adc import group_size, quantize_lut_int8
+    from repconc_tpu_torch.index.cuda_adc import select_topk
+    from repconc_tpu_torch.index.cuda_ivf import (
+        cell_lengths, ivf_filter, ivf_filter_reference, ivf_group_max,
+        ivf_group_max_reference, ivf_plan, ivf_topk, regroup_topk,
+        score_work_tiles, slot_queries)
+
+    K = 256
+    cases = [  # name, Q, nlist, nprobe, Lpad, M, topk, full cells, distinct
+        ("bench", 1200, 4096, 64, 256, 48, 1000, True, 0),
+        ("m12_lpad2048", 1200, 1024, 64, 2048, 12, 1000, False, 0),
+        ("ties", 256, 256, 16, 640, 12, 100, False, 3),
+        ("tau_neg_inf", 256, 256, 16, 640, 12, 1000, False, 0),
+    ]
+    results = {}
+    for name, Q, nlist, nprobe, Lpad, M, topk, full, distinct in cases:
+        seed = SEED + Q + nlist + Lpad + M + distinct
+        g = torch.Generator(device=dev).manual_seed(seed)
+        cells, row, work_cell, slot_pair = ivf_geometry(dev, Q, nlist, nprobe,
+                                                        16 * M, seed)
+        qidx = slot_queries(slot_pair, nprobe, Q)
+        # cells filled to random lengths (bench.py's IVF has every cell
+        # full), consecutive corpus ids, trailing pads
+        lens = (torch.full((nlist,), Lpad, device=dev) if full else
+                torch.randint(0, Lpad + 1, (nlist,), generator=g, device=dev))
+        real = torch.arange(Lpad, device=dev)[None, :] < lens[:, None]
+        cell_ids = torch.full((nlist, Lpad), -1, dtype=torch.int32, device=dev)
+        cell_ids[real] = torch.arange(int(real.sum()), dtype=torch.int32,
+                                      device=dev)
+        cell_len = cell_lengths(cell_ids)
+        codes = torch.randint(0, K, (nlist, Lpad, M), generator=g, device=dev,
+                              dtype=torch.uint8)
+        if distinct:  # every cell repeats the same rows: exact ties
+            codes[:] = codes[0, :distinct].repeat(-(-Lpad // distinct),
+                                                  1)[:Lpad]
+        lut = torch.randn((Q, M, K), generator=g, device=dev)
+        gm = group_size(M, K)
+        lut_i8, scales = quantize_lut_int8(lut, gm)
+        zrow = lambda a: torch.cat([a, a.new_zeros((1,) + a.shape[1:])]).contiguous()  # noqa: E731
+        variants = {"bf16": (zrow(lut.to(torch.bfloat16)), None, 2, 0),
+                    "int8": (zrow(lut_i8), zrow(scales), 1, M // gm)}
+        # pass 2 as ivf_topk runs it: tau the topk-th run max and gmax, or,
+        # where pass 1 is skipped, tau -inf, no gmax and cap nprobe * Lpad
+        pass1, cap = ivf_plan(nprobe, Lpad, topk)
+        results[name] = {}
+        for lut_dtype, (lut_z, scales_z, b, G) in variants.items():
+            what = f"ivf_topk_check {name} {lut_dtype}"
+            tiles = (work_cell, slot_pair, lut_z, codes)
+            rest = (cell_ids, cell_len, nprobe)
+            gmax = ivf_group_max(*tiles, cell_len, nprobe, scales_z)
+            want = ivf_group_max_reference(*tiles, cell_len, nprobe, scales_z)
+            torch.cuda.synchronize()
+            check(torch.equal(gmax, want), f"{what}: gmax bit for bit")
+            if pass1:
+                tau = torch.topk(gmax.reshape(Q, -1), topk, dim=1).values
+                tau, gmax2 = tau[:, -1].contiguous(), gmax
+            else:
+                tau = torch.full((Q,), -torch.inf, device=dev)
+                gmax2 = None
+            got = ivf_filter(*tiles, *rest, tau, cap, gmax2, scales_z)
+            want = ivf_filter_reference(*tiles, *rest, tau, cap, scales_z)
+            torch.cuda.synchronize()
+            same_candidates(got, want, what)
+            count = got[2]
+            reruns = ivf_topk.reruns
+            s, i = ivf_topk(*tiles, *rest, topk, scales_z)
+            reruns = ivf_topk.reruns - reruns
+            scores = score_work_tiles(work_cell, qidx, lut_z, codes, scales_z)
+            s_u, i_u = regroup_topk(scores.reshape(-1, Lpad), row, cells,
+                                    cell_ids, Q, nprobe, topk)
+            check(same_topk(s, i, s_u, i_u), f"{what}: ivf_topk equals K2 / "
+                  "K3 + regroup_topk (scores bit for bit, ids but tie order)")
+            del scores, s_u, i_u
+            check(pass1 == (name != "tau_neg_inf" and name != "bench"),
+                  f"{what}: pass 1 runs where k runs can exist")
+            if distinct:
+                check(reruns == 1, f"{what}: the ties force a rerun")
+            kk = min(topk, nprobe * Lpad)
+            sel = select_topk(got[0], got[1], kk)
+            two = select_two_sorts(got[0], got[1], kk)
+            check(torch.equal(sel[0], two[0]) and torch.equal(sel[1], two[1]),
+                  f"{what}: select_topk equals the two stable sorts")
+            plain_reps = (1, 0) if Lpad > 1000 else (3, 1)
+            ms = {
+                "select_topk": time_ms(lambda: select_topk(got[0], got[1],
+                                                           kk)),
+                "select_two_sorts": time_ms(lambda: select_two_sorts(
+                    got[0], got[1], kk)),
+                "pass1": time_ms(lambda: ivf_group_max(
+                    *tiles, cell_len, nprobe, scales_z)),
+                "pass2": time_ms(lambda: ivf_filter(
+                    *tiles, *rest, tau, cap, gmax2, scales_z)),
+                "plain1": time_ms(lambda: ivf_group_max_reference(
+                    *tiles, cell_len, nprobe, scales_z), *plain_reps),
+                "plain2": time_ms(lambda: ivf_filter_reference(
+                    *tiles, *rest, tau, cap, scales_z), *plain_reps),
+                "ivf_topk": time_ms(lambda: ivf_topk(*tiles, *rest, topk,
+                                                     scales_z)),
+                "unfused": time_ms(lambda: regroup_topk(score_work_tiles(
+                    work_cell, qidx, lut_z, codes, scales_z).reshape(
+                        -1, Lpad), row, cells, cell_ids, Q, nprobe, topk)),
+            }
+            bd = ivf_pass_bounds(work_cell, slot_pair, cell_len, gmax2, tau,
+                                 count, nprobe, Lpad, M, K, b, G, topk)
+            shape = dict(Q=Q, nlist=nlist, nprobe=nprobe, Lpad=Lpad, M=M, K=K,
+                         T=int(work_cell.shape[0]), topk=topk,
+                         real_docs_mean=float(cell_len.float().mean()))
+            res = {
+                "ivf_group_max": dict(ms=ms["pass1"], plain_ms=ms["plain1"],
+                                      bound_ms=bd["pass1"][0],
+                                      bound_by=bd["pass1"][1],
+                                      max_abs_err=0.0, shape=shape),
+                "ivf_filter": dict(ms=ms["pass2"], plain_ms=ms["plain2"],
+                                   bound_ms=bd["pass2"][0],
+                                   bound_by=bd["pass2"][1], max_abs_err=0.0,
+                                   shape=dict(shape, cap=cap,
+                                              with_gmax=pass1)),
+            }
+            results[name][lut_dtype] = res
+            emit("ivf_topk_check", case=name, lut_dtype=lut_dtype, **shape,
+                 pass1_in_ivf_topk=pass1, cap=cap, passes=res,
+                 pass2_adds_share=bd["pass2_adds_share"],
+                 candidates_mean=float(count.float().mean()),
+                 candidates_max=int(count.max()), reruns=reruns,
+                 ivf_topk_ms=ms["ivf_topk"], ivf_topk_bound_ms=bd["search"][0],
+                 unfused_k2_regroup_ms=ms["unfused"],
+                 select_topk_ms=ms["select_topk"],
+                 select_two_sorts_ms=ms["select_two_sorts"], library_ms=None)
+            del gmax, gmax2, want, got, tau, count, s, i
+        del codes, lut, lut_i8, scales, variants, cell_ids, cell_len
+        torch.cuda.empty_cache()
+    return results
+
+
 def launch_counts():
     from repconc_tpu_torch.index.cuda_adc import (adc_filter, adc_group_max,
                                                   adc_scores, adc_scores_int8,
                                                   adc_topk)
-    from repconc_tpu_torch.index.cuda_ivf import score_work_tiles
+    from repconc_tpu_torch.index.cuda_ivf import (ivf_filter, ivf_group_max,
+                                                  ivf_topk, score_work_tiles)
 
     return {"adc_scan": adc_scores.launches,
             "adc_group_max": adc_group_max.launches,
@@ -821,6 +1088,11 @@ def launch_counts():
             "adc_topk_reruns": adc_topk.reruns,
             "ivf_scan_bf16": score_work_tiles.launches["bf16"],
             "ivf_scan_i8": score_work_tiles.launches["int8"],
+            "ivf_group_max_bf16": ivf_group_max.launches["bf16"],
+            "ivf_group_max_i8": ivf_group_max.launches["int8"],
+            "ivf_filter_bf16": ivf_filter.launches["bf16"],
+            "ivf_filter_i8": ivf_filter.launches["int8"],
+            "ivf_topk_reruns": ivf_topk.reruns,
             "adc_scan_i8": adc_scores_int8.launches}
 
 
@@ -828,7 +1100,8 @@ def reset_launches():
     from repconc_tpu_torch.index.cuda_adc import (adc_filter, adc_group_max,
                                                   adc_scores, adc_scores_int8,
                                                   adc_topk)
-    from repconc_tpu_torch.index.cuda_ivf import score_work_tiles
+    from repconc_tpu_torch.index.cuda_ivf import (ivf_filter, ivf_group_max,
+                                                  ivf_topk, score_work_tiles)
 
     adc_scores.launches = 0
     adc_group_max.launches = 0
@@ -836,6 +1109,9 @@ def reset_launches():
     adc_topk.reruns = 0
     adc_scores_int8.launches = 0
     score_work_tiles.launches = {"bf16": 0, "int8": 0}
+    ivf_group_max.launches = {"bf16": 0, "int8": 0}
+    ivf_filter.launches = {"bf16": 0, "int8": 0}
+    ivf_topk.reruns = 0
 
 
 def resum_check(queries, centroids, codes, scores, ids, spill_ids,
@@ -906,8 +1182,8 @@ def phase_ivf_scale(dev):
 
     searches = {}
     for lut_dtype in ("bf16", "int8"):
-        # the first call at full size grows the caching allocator by ~15 GB
-        # (the score buffer and the candidates at Lpad ~8.7k): timed apart
+        # the first call at full size grows the caching allocator: timed
+        # apart
         times = []
         for _ in range(3):
             reset_launches()
@@ -974,42 +1250,112 @@ def phase_ivf_scale(dev):
     del searches, s, i, s8, i8, codes, cell_ids, cell_of, valid, in_spill, lut
     del index
     torch.cuda.empty_cache()
-    return out
+    return out, breakdown
 
 
 def ivf_breakdown(index, queries, nprobe: int, topk: int):
-    """Where one bf16 IVF search of the batch spends its time: each step of
-    CudaIVFIndex.search_device timed alone (CUDA events, median of 3)."""
+    """Where one IVF search of the batch spends its time, bf16 and int8:
+    each step of CudaIVFIndex.search_device timed alone (CUDA events,
+    median of 3), and beside them, as the before, K2 / K3 scoring every
+    slot and regroup_topk, and the whole unfused search. The fused top-k is
+    held to the unfused one on every query (scores bit for bit, ids except
+    tie order); the peak device memory of one whole search of each kind is
+    read above what the index holds."""
     import torch
     from repconc_tpu_torch.index import cuda_ivf
+    from repconc_tpu_torch.index.cuda_adc import select_topk
     from repconc_tpu_torch.index.ivf import probe_cells
 
     ivf = cuda_ivf.CudaIVFIndex(index, device=queries.device)
     Q, nlist, Lpad = queries.shape[0], ivf.nlist, ivf.cell_codes.shape[1]
+    M, K = ivf.cell_codes.shape[2], ivf.centroids.shape[1]
     cells = probe_cells(queries, ivf.coarse, nprobe)
-    row, work_cell, qidx, _ = cuda_ivf.group_pairs(cells, Q, nlist, nprobe)
-    lut_z, _ = cuda_ivf.make_lut_z(queries, ivf.centroids)
-    scores = cuda_ivf.score_work_tiles(work_cell, qidx, lut_z, ivf.cell_codes)
-    flat = scores.reshape(-1, Lpad)
-    s, i = cuda_ivf.regroup_topk(flat, row, cells, ivf.cell_ids, Q, nprobe,
-                                 topk)
-    steps = {
-        "probe": lambda: probe_cells(queries, ivf.coarse, nprobe),
-        "group_pairs": lambda: cuda_ivf.group_pairs(cells, Q, nlist, nprobe),
-        "lut": lambda: cuda_ivf.make_lut_z(queries, ivf.centroids),
-        "k2_scan": lambda: cuda_ivf.score_work_tiles(work_cell, qidx, lut_z,
-                                                     ivf.cell_codes),
-        "regroup_topk": lambda: cuda_ivf.regroup_topk(
-            flat, row, cells, ivf.cell_ids, Q, nprobe, topk),
-        "spill_topk_merge": lambda: cuda_ivf.merge_spill(
-            s, i, ivf.spill, ivf.spill_ids, queries, topk),
-        "whole_search": lambda: ivf.search_device(queries, topk, nprobe),
-    }
-    out = {name: time_ms(fn, reps=3, warmup=1) for name, fn in steps.items()}
+    row, work_cell, slot_pair = cuda_ivf.group_pairs(cells, Q, nlist, nprobe)
+    qidx = cuda_ivf.slot_queries(slot_pair, nprobe, Q)
+    pass1, cap = cuda_ivf.ivf_plan(nprobe, Lpad, topk)
+    check(pass1, "ivf_scale: pass 1 runs (each query can have k runs)")
+    out = {"probe": time_ms(lambda: probe_cells(queries, ivf.coarse, nprobe),
+                            reps=3, warmup=1),
+           "group_pairs": time_ms(lambda: cuda_ivf.group_pairs(
+               cells, Q, nlist, nprobe)),
+           "tiles": int(work_cell.shape[0]), "cap": cap,
+           "runs_per_cell": -(-Lpad // 32),
+           "score_buffer_gb": work_cell.shape[0] * 32 * Lpad * 4 / 1e9}
+    for lut_dtype in ("bf16", "int8"):
+        lut_z, scales_z = cuda_ivf.make_lut_z(queries, ivf.centroids,
+                                              lut_dtype)
+        tiles = (work_cell, slot_pair, lut_z, ivf.cell_codes)
+        rest = (ivf.cell_ids, ivf.cell_len, nprobe)
+        gmax = cuda_ivf.ivf_group_max(*tiles, ivf.cell_len, nprobe, scales_z)
+        tau = torch.topk(gmax.reshape(Q, -1), topk, dim=1).values[:, -1]
+        tau = tau.contiguous()
+        cand = cuda_ivf.ivf_filter(*tiles, *rest, tau, cap, gmax, scales_z)
+        reruns = cuda_ivf.ivf_topk.reruns
+        s, i = cuda_ivf.ivf_topk(*tiles, *rest, topk, scales_z)
+        reruns = cuda_ivf.ivf_topk.reruns - reruns
+        scores = cuda_ivf.score_work_tiles(work_cell, qidx, lut_z,
+                                           ivf.cell_codes, scales_z)
+        flat = scores.reshape(-1, Lpad)
+        s_u, i_u = cuda_ivf.regroup_topk(flat, row, cells, ivf.cell_ids, Q,
+                                         nprobe, topk)
+        check(same_topk(s, i, s_u, i_u), f"ivf_scale {lut_dtype}: the fused "
+              f"top-k equals K2 / K3 + regroup_topk on all {Q} queries")
+        scan = "k2_scan" if lut_dtype == "bf16" else "k3_scan"
+        ms = {  # the before: every score written, then the regroup
+            scan: time_ms(lambda: cuda_ivf.score_work_tiles(
+                work_cell, qidx, lut_z, ivf.cell_codes, scales_z),
+                reps=3, warmup=1),
+            "regroup_topk": time_ms(lambda: cuda_ivf.regroup_topk(
+                flat, row, cells, ivf.cell_ids, Q, nprobe, topk),
+                reps=3, warmup=1)}
+        del scores, flat, s_u, i_u
+        torch.cuda.empty_cache()
+        steps = {
+            "lut": lambda: cuda_ivf.make_lut_z(queries, ivf.centroids,
+                                               lut_dtype),
+            "pass1": lambda: cuda_ivf.ivf_group_max(*tiles, ivf.cell_len,
+                                                    nprobe, scales_z),
+            "threshold": lambda: torch.topk(gmax.reshape(Q, -1), topk,
+                                            dim=1).values[:, -1].contiguous(),
+            "pass2": lambda: cuda_ivf.ivf_filter(*tiles, *rest, tau, cap,
+                                                 gmax, scales_z),
+            "final_sort": lambda: select_topk(cand[0], cand[1], topk),
+            "final_sort_two_sorts": lambda: select_two_sorts(cand[0], cand[1],
+                                                             topk),
+            "ivf_topk": lambda: cuda_ivf.ivf_topk(*tiles, *rest, topk,
+                                                  scales_z),
+            "spill_topk_merge": lambda: cuda_ivf.merge_spill(
+                s, i, ivf.spill, ivf.spill_ids, queries, topk),
+            "whole_search": lambda: ivf.search_device(queries, topk, nprobe,
+                                                      lut_dtype),
+            "whole_search_unfused": lambda: unfused_ivf_search(
+                ivf, queries, nprobe, topk, lut_dtype),
+        }
+        ms.update({name: time_ms(fn, reps=3, warmup=1)
+                   for name, fn in steps.items()})
+        peak = {}
+        for name in ("whole_search", "whole_search_unfused"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            steps[name]()
+            torch.cuda.synchronize()
+            peak[name] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        b = 2 if lut_dtype == "bf16" else 1
+        G = 0 if scales_z is None else scales_z.shape[1]
+        bd = ivf_pass_bounds(work_cell, slot_pair, ivf.cell_len, gmax, tau,
+                             cand[2], nprobe, Lpad, M, K, b, G, topk)
+        out[lut_dtype] = dict(
+            step_ms=ms, peak_gb_above_index=peak,
+            candidates_mean=float(cand[2].float().mean()),
+            candidates_max=int(cand[2].max()), reruns=reruns,
+            bound_ms={k: v for k, v in bd.items()},
+            k2_bound_ms=ivf_bound(work_cell, qidx, Q + 1, Lpad, M, K, b, G))
+        del gmax, tau, cand, s, i, lut_z, scales_z, tiles
+        torch.cuda.empty_cache()
     out["spill_steps"] = spill_breakdown(ivf.spill, queries, topk)
-    out["tiles"] = int(work_cell.shape[0])
-    out["score_buffer_gb"] = scores.numel() * 4 / 1e9
-    del ivf, scores, flat, s, i
+    del ivf
     torch.cuda.empty_cache()
     return out
 
@@ -1092,9 +1438,15 @@ def phase_ivf_main_path(dev, main):
 
         index = IVFIndex.load(tmp)
     full = runs["full_bf16"]
-    check(full["launches"]["ivf_scan_bf16"] > 0, "ivf main path launched K2")
-    check(runs["full_int8"]["launches"]["ivf_scan_i8"] > 0,
-          "ivf main path (int8 LUT) launched K3")
+    for name, r in runs.items():
+        kind = "i8" if name.endswith("int8") else "bf16"
+        n = r["launches"]
+        check(n[f"ivf_filter_{kind}"] > 0 and n["ivf_scan_bf16"] == 0
+              and n["ivf_scan_i8"] == 0, f"ivf main path {name} went through "
+              f"the two passes, not the unfused K2 / K3 ({n})")
+    check(full["launches"]["ivf_group_max_bf16"] > 0
+          and runs["full_int8"]["launches"]["ivf_group_max_i8"] > 0,
+          "ivf main path at full probe launched pass 1 (bf16 and int8)")
     check(topk_agree(full["scores"], full["ids"], plain, ADC_TOL),
           "ivf full probe ranks as the flat K1 scan, except near-ties")
     q_dev = torch.as_tensor(q_embeds, dtype=torch.float32, device=dev)
@@ -1162,6 +1514,20 @@ KERNELS = [  # name, source, replaces, the TPU function
     ("adc_scan_i8", "repconc_tpu_torch/csrc/adc_scan_i8.cu",
      "repconc_tpu/index/pallas_adc.py:107",
      "_adc_onehot_kernel_i8 via adc_scores_pallas_int8"),
+    ("ivf_group_max_bf16", "repconc_tpu_torch/csrc/ivf_scan.cu",
+     "repconc_tpu/index/pallas_ivf.py:90",
+     "_ivf_kernel via _score_work_tiles, and _regroup_topk "
+     "(pallas_ivf.py:314-336): pass 1"),
+    ("ivf_filter_bf16", "repconc_tpu_torch/csrc/ivf_scan.cu",
+     "repconc_tpu/index/pallas_ivf.py:90",
+     "_ivf_kernel via _score_work_tiles, and _regroup_topk "
+     "(pallas_ivf.py:314-336): pass 2"),
+    ("ivf_group_max_i8", "repconc_tpu_torch/csrc/ivf_scan.cu",
+     "repconc_tpu/index/pallas_ivf.py:112",
+     "_ivf_kernel_i8 via _score_work_tiles, and _regroup_topk: pass 1"),
+    ("ivf_filter_i8", "repconc_tpu_torch/csrc/ivf_scan.cu",
+     "repconc_tpu/index/pallas_ivf.py:112",
+     "_ivf_kernel_i8 via _score_work_tiles, and _regroup_topk: pass 2"),
 ]
 NO_LIBRARY = {  # why a kernel has no one-call PyTorch yardstick
     "adc_group_max": "no single PyTorch call takes group maxima of ADC "
@@ -1173,6 +1539,12 @@ NO_LIBRARY = {  # why a kernel has no one-call PyTorch yardstick
                    "per-group scales",
     "adc_scan_i8": "no single PyTorch call sums int8 LUT entries per group "
                    "and scales the groups",
+    "ivf_group_max_bf16": "no single PyTorch call takes run maxima of "
+                          "cell-grouped ADC scores",
+    "ivf_filter_bf16": "no single PyTorch call keeps the docs of probed "
+                       "cells above a per-query threshold",
+    "ivf_group_max_i8": "as ivf_group_max_bf16, with per-group scales",
+    "ivf_filter_i8": "as ivf_filter_bf16, with per-group scales",
 }
 
 
@@ -1195,17 +1567,19 @@ def main() -> int:
     k1, worst = phase_k1_check(dev)
     topk_checks = phase_k1_topk_check(dev)
     checks = phase_ivf_checks(dev)
+    ivf_topk_checks = phase_ivf_topk_check(dev)
     full_scan = phase_full_scan(dev)
-    ivf_scale = phase_ivf_scale(dev)
+    ivf_scale, ivf_breakdown_ms = phase_ivf_scale(dev)
     main_path = phase_main_path(dev)
     ivf_runs = phase_ivf_main_path(dev, main_path)
 
     # launches on the paths: both passes of the K1 top-k on the flat main
-    # path (phase 4), K2 on the IVF path with the bf16 LUT and K3 on it with
-    # the int8 LUT (phase 7). K1's score-returning scan is on no path since
-    # the two passes took its place; K4 is on no path (none in the JAX
-    # package either). Their launches there must stay 0; k1_check and
-    # k4_check hold them against their plain versions
+    # path (phase 4); both passes of the IVF top-k on the IVF path, with
+    # K2's scan body for the bf16 LUT and K3's for the int8 LUT (phase 7).
+    # K1's score-returning scan, K2 / K3 writing every score, and K4 are on
+    # no path: the passes took the place of the first two, and K4 has none
+    # in the JAX package either. Their launches there must stay 0; k1_check,
+    # k2_check, k3_check and k4_check hold them against their plain versions
     on_paths = [main_path["launches"], *ivf_runs.values(),
                 *(r["launches"] for r in ivf_scale.values())]
     launches = {
@@ -1213,12 +1587,14 @@ def main() -> int:
         "adc_group_max": (main_path["launches"]["adc_group_max"],
                           "main_path"),
         "adc_filter": (main_path["launches"]["adc_filter"], "main_path"),
-        "ivf_scan_bf16": (ivf_runs["full_bf16"]["ivf_scan_bf16"],
-                          "ivf_main_path full_bf16"),
-        "ivf_scan_i8": (ivf_runs["full_int8"]["ivf_scan_i8"],
-                        "ivf_main_path full_int8"),
+        "ivf_scan_bf16": (sum(r["ivf_scan_bf16"] for r in on_paths), None),
+        "ivf_scan_i8": (sum(r["ivf_scan_i8"] for r in on_paths), None),
         "adc_scan_i8": (sum(r["adc_scan_i8"] for r in on_paths), None),
     }
+    for kind, run in (("bf16", "full_bf16"), ("i8", "full_int8")):
+        for p in ("ivf_group_max", "ivf_filter"):
+            launches[f"{p}_{kind}"] = (ivf_runs[run][f"{p}_{kind}"],
+                                       f"ivf_main_path {run}")
     timed = {
         "adc_scan": dict(k1[(1200, 1 << 17, 12)], max_abs_err=worst,
                          shape={"Q": 1200, "N": 1 << 17, "M": 12, "K": 256}),
@@ -1231,6 +1607,16 @@ def main() -> int:
     for name in ("ivf_scan_bf16", "ivf_scan_i8", "adc_scan_i8"):
         timed[name] = dict(timed[name], max_abs_err=max(
             r["max_abs_err"] for r in checks[name].values()))
+    # the IVF passes at the M=12 check shape (with their plain versions),
+    # and at ivf_scale's serving shape (CUDA events, no plain version there)
+    for lut, kind in (("bf16", "bf16"), ("int8", "i8")):
+        at_scale = ivf_breakdown_ms[lut]
+        for p, step in (("ivf_group_max", "pass1"), ("ivf_filter", "pass2")):
+            timed[f"{p}_{kind}"] = dict(
+                ivf_topk_checks["m12_lpad2048"][lut][p],
+                ivf_scale_ms=at_scale["step_ms"][step],
+                ivf_scale_bound_ms=at_scale["bound_ms"][step][0],
+                ivf_scale_bound_by=at_scale["bound_ms"][step][1])
     elsewhere = {  # launches of the passes outside the main path
         "full_scan": {k: full_scan["launches"][k]
                       for k in ("adc_group_max", "adc_filter")},
@@ -1245,6 +1631,11 @@ def main() -> int:
           and all(v > 0 for r in elsewhere["ivf_scale"].values()
                   for v in r.values()),
           f"full_scan and the ivf_scale spill ran both passes ({elsewhere})")
+    check(all(r["launches"][f"ivf_{p}_{k}"] > 0
+              for lut, r in ivf_scale.items()
+              for p, k in (("group_max", "bf16" if lut == "bf16" else "i8"),
+                           ("filter", "bf16" if lut == "bf16" else "i8"))),
+          "ivf_scale's searches ran both IVF passes")
     line = []
     for name, source, replaces, function in KERNELS:
         n, path = launches[name]
@@ -1269,6 +1660,9 @@ def main() -> int:
         if name in ("adc_group_max", "adc_filter"):
             entry["launches_elsewhere"] = {
                 k: v for k, v in elsewhere.items()}
+        for k in ("ivf_scale_ms", "ivf_scale_bound_ms", "ivf_scale_bound_by"):
+            if k in t:
+                entry[k] = t[k]
         line.append(entry)
     print(json.dumps({"kernels": line}), flush=True)
     print(card_line(), flush=True)

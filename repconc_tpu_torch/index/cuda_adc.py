@@ -264,13 +264,18 @@ adc_filter.launches = 0
 
 
 def select_topk(cand_s: torch.Tensor, cand_i: torch.Tensor, topk: int):
-    """The first `topk` candidates by (score DESC, id ASC): a stable sort by
-    id, then a stable sort by score, so the result does not depend on the
-    order in which pass 2 stored them."""
-    ids, perm = torch.sort(cand_i, dim=1, stable=True)
-    s, perm = torch.sort(torch.gather(cand_s, 1, perm), dim=1,
-                         descending=True, stable=True)
-    return s[:, :topk], torch.gather(ids, 1, perm[:, :topk])
+    """The first `topk` candidates by (score DESC, id ASC), so the result
+    does not depend on the order in which pass 2 stored them: one
+    torch.topk over a 64-bit key, the score's bits mapped to an int32 that
+    orders as the floats do in the high half and 2^31 - 1 - id in the low
+    half. Ids lie in [-1, 2^31) (-1 for an empty slot); scores are sums
+    from +0.0, so never NaN and never -0.0 (which the key would put below
+    +0.0)."""
+    bits = cand_s.contiguous().view(torch.int32)
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    key = (key.long() << 32) | ((1 << 31) - 1 - cand_i)
+    pos = torch.topk(key, topk, dim=1).indices
+    return torch.gather(cand_s, 1, pos), torch.gather(cand_i, 1, pos)
 
 
 def search_plan(n_valid: int, topk: int):

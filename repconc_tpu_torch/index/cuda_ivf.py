@@ -3,20 +3,29 @@ host side of repconc_tpu/index/pallas_ivf.py:149-385,897-1028).
 
 The batch is grouped by cell: every (query, probed cell) pair gets a slot
 in a work tile of QT_G query slots that all score one cell, so each tile
-reads its cell's codes once for up to QT_G queries. `score_work_tiles`
-wraps the kernels of csrc/ivf_scan.cu: K2 (bf16 LUT) replaces
-`_ivf_kernel` (pallas_ivf.py:90-109) and K3 (int8 LUT) replaces
-`_ivf_kernel_i8` (:112-142). The spill segment is brute-forced with
-`CudaADCIndex` (K1, bf16 LUT) and merged, with either LUT type for the
-cells, as the JAX package does.
+reads its cell's codes once for up to QT_G queries. The kernels of
+csrc/ivf_scan.cu score the tiles with one scan body: K2 (bf16 LUT)
+replaces `_ivf_kernel` (pallas_ivf.py:90-109) and K3 (int8 LUT)
+`_ivf_kernel_i8` (:112-142).
+
+A search runs them as two passes with a per-query top-k, driven by
+`ivf_topk` (the counterpart of cuda_adc.py::adc_topk): `ivf_group_max`
+takes the max of each run of 32 real docs of every probed cell, tau[q] is
+the k-th largest of a query's run maxima, and `ivf_filter` keeps the real
+docs at or above it, with their corpus ids; one sort of about k candidates
+per query ends the search. This replaces JAX's score-every-slot scan and
+regroup (`_score_work_tiles` then `_regroup_topk`, :314-336): no
+(T, QT_G, Lpad) score buffer is written. `score_work_tiles` (K2 / K3
+writing every score) and `regroup_topk` stay as the unfused yardstick, on
+no search path. The spill segment is brute-forced with `CudaADCIndex` (K1,
+bf16 LUT) and merged, with either LUT type for the cells, as the JAX
+package does.
 
 The TPU sized a static tile grid T_max from `_tile_budget` because XLA
 needs static shapes, and searched again at the worst-case shape when pairs
 overflowed it (:1016-1028). PyTorch has no such constraint, so the grid
 here is exact: T = sum_c ceil(count_c / QT_G), one device-to-host read of
 one integer per batch. No pair can overflow and there is no retry.
-`group_pairs` still takes a T_max and counts the overflow, as the JAX
-function does.
 """
 from __future__ import annotations
 
@@ -28,32 +37,31 @@ import torch
 
 from repconc_tpu_torch import build
 from repconc_tpu_torch.core.device import resolve_device
-from repconc_tpu_torch.index.adc import build_lut, group_size, quantize_lut_int8
-from repconc_tpu_torch.index.cuda_adc import CudaADCIndex
+from repconc_tpu_torch.index.adc import (RUN, build_lut, group_size,
+                                         quantize_lut_int8)
+from repconc_tpu_torch.index.cuda_adc import CudaADCIndex, select_topk
 from repconc_tpu_torch.index.ivf import IVFIndex, probe_cells
 
 SOURCE = "ivf_scan.cu"
 QT_G = 32  # query slots per work tile (the kernel's warp-wide slot ballot)
 
 
-def group_pairs(cells: torch.Tensor, Q: int, nlist: int, nprobe: int,
-                T_max: Optional[int] = None):
+def group_pairs(cells: torch.Tensor, Q: int, nlist: int, nprobe: int):
     """Sort-free grouping of the (query, cell) probe pairs into work tiles
-    (pallas_ivf.py:268-311).
+    (pallas_ivf.py:268-311), on an exact grid.
 
     Cells within one query are distinct, so a pair's rank inside its cell
     is the number of earlier queries that probed the cell: an exclusive
     cumsum over the (Q, nlist) 0/1 incidence matrix. Tiles are laid out
-    cell-ascending, queries in order within a cell.
+    cell-ascending, queries in order within a cell; T = sum_c
+    ceil(count_c / QT_G) (one device-to-host read).
 
-    cells: (Q, nprobe) int. T_max=None sizes the grid exactly (one
-    device-to-host read). Returns (row, work_cell, qidx, overflow):
+    cells: (Q, nprobe) int. Returns (row, work_cell, slot_pair):
       row (Q * nprobe,) int64 - each pair's slot row (tile * QT_G + slot),
         q-major;
-      work_cell (T_max,) int32 - tile -> cell (0 for unused tiles);
-      qidx (T_max, QT_G) int32 - slot -> query, Q for an empty slot;
-      overflow - a 0-dim tensor, the pairs whose tile fell past T_max
-        (dropped); always 0 with the exact grid.
+      work_cell (T,) int32 - tile -> cell;
+      slot_pair (T, QT_G) int32 - slot -> its pair q * nprobe + j, -1 for
+        an empty slot (`slot_queries` gives the slot's query).
     """
     dev = cells.device
     pair_cell = cells.reshape(-1).long()
@@ -64,18 +72,36 @@ def group_pairs(cells: torch.Tensor, Q: int, nlist: int, nprobe: int,
     before = torch.cumsum(incidence, 0, dtype=torch.int32) - incidence
     rank = before.reshape(-1)[pair_q * nlist + pair_cell].long()
     tiles_per_cell = (counts + QT_G - 1) // QT_G
-    if T_max is None:
-        T_max = int(tiles_per_cell.sum())
+    T = int(tiles_per_cell.sum())
     tiles_before = (torch.cumsum(tiles_per_cell, 0) - tiles_per_cell).long()
     work_id = tiles_before[pair_cell] + rank // QT_G
-    fits = work_id < T_max
-    overflow = (~fits).sum()
     row = work_id * QT_G + rank % QT_G
-    work_cell = torch.zeros(T_max, dtype=torch.int32, device=dev)
-    work_cell[work_id[fits]] = pair_cell[fits].to(torch.int32)
-    qidx = torch.full((T_max * QT_G,), Q, dtype=torch.int32, device=dev)
-    qidx[row[fits]] = pair_q[fits].to(torch.int32)
-    return row, work_cell, qidx.reshape(T_max, QT_G), overflow
+    work_cell = torch.zeros(T, dtype=torch.int32, device=dev)
+    work_cell[work_id] = pair_cell.to(torch.int32)
+    slot_pair = torch.full((T * QT_G,), -1, dtype=torch.int32, device=dev)
+    slot_pair[row] = torch.arange(Q * nprobe, dtype=torch.int32, device=dev)
+    return row, work_cell, slot_pair.reshape(T, QT_G)
+
+
+def slot_queries(slot_pair: torch.Tensor, nprobe: int, Q: int) -> torch.Tensor:
+    """(T, QT_G) int32 slot -> query map (JAX's qidx): the query of each
+    slot's pair, Q (the LUT's zero row) for an empty slot."""
+    return torch.where(slot_pair >= 0, slot_pair // nprobe,
+                       Q).to(torch.int32)
+
+
+def cell_lengths(cell_ids: torch.Tensor) -> torch.Tensor:
+    """(nlist,) int32: the real docs of each cell. The passes take docs
+    0 .. len - 1 of a cell as its real ones, as `fill_cells` of both
+    packages leaves them (pads, id -1, after every real doc); an index laid
+    out otherwise raises ValueError."""
+    real = cell_ids >= 0
+    n = real.sum(1, dtype=torch.int32)
+    first = torch.arange(cell_ids.shape[1], device=cell_ids.device)[None, :]
+    if not torch.equal(real, first < n[:, None]):
+        raise ValueError("cell_ids holds a pad (-1) before a real doc; the "
+                         "IVF passes need each cell's pads after its docs")
+    return n
 
 
 def score_work_tiles_reference(work_cell: torch.Tensor, qidx: torch.Tensor,
@@ -115,8 +141,81 @@ def score_work_tiles_reference(work_cell: torch.Tensor, qidx: torch.Tensor,
     return acc
 
 
+def _pair_scores(work_cell, slot_pair, lut_z, cell_codes, cell_len, nprobe,
+                 scales_z):
+    """The plain passes' common part: every slot's scores from
+    score_work_tiles_reference laid out by pair, (Q * nprobe, Lpad), with
+    the real-doc mask of the pair's cell (doc l < cell_len) and the pair's
+    cell; pairs in no slot score -inf, real nowhere."""
+    Q = lut_z.shape[0] - 1
+    Lpad = cell_codes.shape[1]
+    scores = score_work_tiles_reference(
+        work_cell, slot_queries(slot_pair, nprobe, Q), lut_z, cell_codes,
+        scales_z)
+    occ = slot_pair >= 0
+    pairs = slot_pair[occ].long()
+    tile_cell = work_cell.long()[:, None].expand_as(slot_pair)[occ]
+    dev = lut_z.device
+    pair_scores = torch.full((Q * nprobe, Lpad), -torch.inf, device=dev)
+    pair_scores[pairs] = scores[occ]
+    pair_cell = torch.zeros(Q * nprobe, dtype=torch.long, device=dev)
+    pair_cell[pairs] = tile_cell
+    real = torch.zeros((Q * nprobe, Lpad), dtype=torch.bool, device=dev)
+    real[pairs] = (torch.arange(Lpad, device=dev)[None, :]
+                   < cell_len.long()[tile_cell][:, None])
+    return pair_scores, real, pair_cell
+
+
+def ivf_group_max_reference(work_cell: torch.Tensor, slot_pair: torch.Tensor,
+                            lut_z: torch.Tensor, cell_codes: torch.Tensor,
+                            cell_len: torch.Tensor, nprobe: int,
+                            scales_z: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Plain version of pass 1: gmax (Q, nprobe, R) f32, R = ceil(Lpad /
+    32): the largest score of each run of 32 docs of the pair's cell
+    (docs 32 r .. 32 r + 31), pads (docs at or past cell_len) excluded; a
+    run with no real doc is -inf."""
+    s, real, _ = _pair_scores(work_cell, slot_pair, lut_z, cell_codes,
+                              cell_len, nprobe, scales_z)
+    Q, Lpad = lut_z.shape[0] - 1, cell_codes.shape[1]
+    R = -(-Lpad // RUN)
+    s = torch.where(real, s, -torch.inf)
+    s = torch.nn.functional.pad(s, (0, R * RUN - Lpad), value=-torch.inf)
+    return s.reshape(Q, nprobe, R, RUN).amax(-1)
+
+
+def ivf_filter_reference(work_cell: torch.Tensor, slot_pair: torch.Tensor,
+                         lut_z: torch.Tensor, cell_codes: torch.Tensor,
+                         cell_ids: torch.Tensor, cell_len: torch.Tensor,
+                         nprobe: int, tau: torch.Tensor, cap: int,
+                         scales_z: Optional[torch.Tensor] = None):
+    """Plain version of pass 2: every real doc of each query's probed cells
+    with score >= tau[q].
+
+    Returns (cand_s (Q, cap) f32, cand_i (Q, cap) int64 corpus ids from
+    cell_ids, count (Q,) int32): count[q] docs pass; the first min(count[q],
+    cap) of them, in pair then doc order, fill the first slots; the other
+    slots hold -inf and id -1. The CUDA pass stores the same set in arrival
+    order, and, past cap, another subset of it.
+    """
+    s, real, pair_cell = _pair_scores(work_cell, slot_pair, lut_z,
+                                      cell_codes, cell_len, nprobe, scales_z)
+    Q = lut_z.shape[0] - 1
+    s = s.reshape(Q, -1)
+    ids = cell_ids.long()[pair_cell].reshape(Q, -1)
+    hit = real.reshape(Q, -1) & (s >= tau[:, None])
+    slot = hit.cumsum(1) - 1
+    keep = hit & (slot < cap)
+    cand_s = torch.full((Q, cap), -torch.inf, device=s.device)
+    cand_i = torch.full((Q, cap), -1, dtype=torch.long, device=s.device)
+    rows, cols = keep.nonzero(as_tuple=True)
+    cand_s[rows, slot[rows, cols]] = s[rows, cols]
+    cand_i[rows, slot[rows, cols]] = ids[rows, cols]
+    return cand_s, cand_i, hit.sum(1).to(torch.int32)
+
+
 def _scan_fns():
-    """The kernels' C entry points, with their argument types declared."""
+    """K2's and K3's C entry points, with their argument types declared."""
     lib = build.load_library(SOURCE)
     bf16, i8 = lib.repconc_ivf_scan_bf16, lib.repconc_ivf_scan_i8
     ints = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -125,6 +224,83 @@ def _scan_fns():
     i8.argtypes = [ctypes.c_void_p] * 6 + ints + [ctypes.c_int, ctypes.c_void_p]
     bf16.restype = i8.restype = ctypes.c_int
     return bf16, i8
+
+
+_PASS_SHAPE = [ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_int] * 6
+
+
+def _group_max_fn():
+    fn = build.load_library(SOURCE).repconc_ivf_group_max
+    fn.argtypes = [ctypes.c_void_p] * 7 + _PASS_SHAPE + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _filter_fn():
+    fn = build.load_library(SOURCE).repconc_ivf_filter
+    fn.argtypes = ([ctypes.c_void_p] * 12 + _PASS_SHAPE
+                   + [ctypes.c_longlong, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_tiles(name, work_cell, slots, lut_z, cell_codes, scales_z,
+                 *more):
+    """What K2 / K3 and their passes take: work_cell (T,) int32, slots
+    (T, QT_G) int32, lut_z (Qz, M, K) with K <= 256, bf16 or int8 with
+    scales_z (Qz, G) f32, cell_codes (nlist, Lpad, M) uint8, and `more`
+    tensors, all contiguous on one device, cuda or cpu. Returns "bf16" or
+    "int8"."""
+    int8 = scales_z is not None
+    if (work_cell.dim() != 1 or slots.shape != (work_cell.shape[0], QT_G)
+            or lut_z.dim() != 3 or cell_codes.dim() != 3
+            or cell_codes.shape[2] != lut_z.shape[1]):
+        raise ValueError(
+            f"work_cell {tuple(work_cell.shape)}, slots {tuple(slots.shape)}, "
+            f"lut {tuple(lut_z.shape)} and codes {tuple(cell_codes.shape)} do "
+            f"not fit (T,), (T, {QT_G}), (Qz, M, K), (nlist, Lpad, M)")
+    Qz, M, K = lut_z.shape
+    want = torch.int8 if int8 else torch.bfloat16
+    if (lut_z.dtype != want or work_cell.dtype != torch.int32
+            or slots.dtype != torch.int32 or cell_codes.dtype != torch.uint8):
+        raise TypeError(f"want a {want} lut, int32 work_cell and slots and "
+                        f"uint8 codes, got {lut_z.dtype}, {work_cell.dtype}, "
+                        f"{slots.dtype} and {cell_codes.dtype}")
+    tensors = [work_cell, slots, lut_z, cell_codes, *more]
+    if int8:
+        if (scales_z.dtype != torch.float32 or scales_z.dim() != 2
+                or scales_z.shape[0] != Qz or M % scales_z.shape[1] != 0):
+            raise ValueError(f"scales {tuple(scales_z.shape)} "
+                             f"{scales_z.dtype} do not fit (Qz={Qz}, G) f32")
+        tensors.append(scales_z)
+    if K > 256:
+        raise ValueError(f"K={K} > 256 does not fit uint8 codes")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"inputs on several devices: "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous inputs")
+    if lut_z.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {lut_z.device}")
+    return "int8" if int8 else "bf16"
+
+
+def _check_cells(cell_codes, cell_len, cell_ids=None):
+    nlist, Lpad, _ = cell_codes.shape
+    if cell_len.shape != (nlist,) or cell_len.dtype != torch.int32:
+        raise ValueError(f"cell_len must be ({nlist},) int32, not "
+                         f"{tuple(cell_len.shape)} {cell_len.dtype}")
+    if cell_ids is not None and (cell_ids.shape != (nlist, Lpad)
+                                 or cell_ids.dtype != torch.int32):
+        raise ValueError(f"cell_ids must be ({nlist}, {Lpad}) int32, not "
+                         f"{tuple(cell_ids.shape)} {cell_ids.dtype}")
+
+
+def _launch(name, kind, fn, *args, device):
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} ({kind}) launch failed: cudaError {err}")
 
 
 def score_work_tiles(work_cell: torch.Tensor, qidx: torch.Tensor,
@@ -138,63 +314,29 @@ def score_work_tiles(work_cell: torch.Tensor, qidx: torch.Tensor,
     all contiguous on one device. A CUDA tensor launches the kernel (or
     raises); a CPU tensor takes the plain version,
     score_work_tiles_reference. Each launch adds one to
-    score_work_tiles.launches["bf16"] or ["int8"].
+    score_work_tiles.launches["bf16"] or ["int8"]. On no search path: the
+    passes below took its place.
     """
-    int8 = scales_z is not None
-    if (work_cell.dim() != 1 or qidx.shape != (work_cell.shape[0], QT_G)
-            or lut_z.dim() != 3 or cell_codes.dim() != 3
-            or cell_codes.shape[2] != lut_z.shape[1]):
-        raise ValueError(
-            f"work_cell {tuple(work_cell.shape)}, qidx {tuple(qidx.shape)}, "
-            f"lut {tuple(lut_z.shape)} and codes {tuple(cell_codes.shape)} do "
-            f"not fit (T,), (T, {QT_G}), (Qz, M, K), (nlist, Lpad, M)")
-    Qz, M, K = lut_z.shape
-    want = torch.int8 if int8 else torch.bfloat16
-    if (lut_z.dtype != want or work_cell.dtype != torch.int32
-            or qidx.dtype != torch.int32 or cell_codes.dtype != torch.uint8):
-        raise TypeError(f"want a {want} lut, int32 work_cell and qidx and "
-                        f"uint8 codes, got {lut_z.dtype}, {work_cell.dtype}, "
-                        f"{qidx.dtype} and {cell_codes.dtype}")
-    tensors = [work_cell, qidx, lut_z, cell_codes]
-    if int8:
-        if (scales_z.dtype != torch.float32 or scales_z.dim() != 2
-                or scales_z.shape[0] != Qz or M % scales_z.shape[1] != 0):
-            raise ValueError(f"scales {tuple(scales_z.shape)} "
-                             f"{scales_z.dtype} do not fit (Qz={Qz}, G) f32")
-        tensors.append(scales_z)
-    if K > 256:
-        raise ValueError(f"K={K} > 256 does not fit uint8 codes")
-    if len({t.device for t in tensors}) != 1:
-        raise ValueError(f"inputs on several devices: "
-                         f"{sorted({str(t.device) for t in tensors})}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("score_work_tiles needs contiguous inputs")
+    kind = _check_tiles("score_work_tiles", work_cell, qidx, lut_z,
+                        cell_codes, scales_z)
     dev = lut_z.device
     if dev.type == "cpu":
         return score_work_tiles_reference(work_cell, qidx, lut_z, cell_codes,
                                           scales_z)
-    if dev.type != "cuda":
-        raise ValueError(f"score_work_tiles runs on cuda or cpu, not {dev}")
+    Qz, M, K = lut_z.shape
     T = work_cell.shape[0]
     nlist, Lpad, _ = cell_codes.shape
     out = torch.empty((T, QT_G, Lpad), dtype=torch.float32, device=dev)
     fn_bf16, fn_i8 = _scan_fns()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if int8:
-            err = fn_i8(lut_z.data_ptr(), scales_z.data_ptr(),
-                        work_cell.data_ptr(), qidx.data_ptr(),
-                        cell_codes.data_ptr(), out.data_ptr(), T, Qz, nlist,
-                        Lpad, M, K, M // scales_z.shape[1], stream)
-        else:
-            err = fn_bf16(lut_z.data_ptr(), work_cell.data_ptr(),
-                          qidx.data_ptr(), cell_codes.data_ptr(),
-                          out.data_ptr(), T, Qz, nlist, Lpad, M, K, stream)
-    kind = "int8" if int8 else "bf16"
-    if err != 0:
-        raise RuntimeError(f"ivf_scan ({kind}) launch failed: cudaError {err} "
-                           f"(T={T}, Qz={Qz}, nlist={nlist}, Lpad={Lpad}, "
-                           f"M={M}, K={K})")
+    if kind == "int8":
+        _launch("ivf_scan", kind, fn_i8, lut_z.data_ptr(), scales_z.data_ptr(),
+                work_cell.data_ptr(), qidx.data_ptr(), cell_codes.data_ptr(),
+                out.data_ptr(), T, Qz, nlist, Lpad, M, K,
+                M // scales_z.shape[1], device=dev)
+    else:
+        _launch("ivf_scan", kind, fn_bf16, lut_z.data_ptr(),
+                work_cell.data_ptr(), qidx.data_ptr(), cell_codes.data_ptr(),
+                out.data_ptr(), T, Qz, nlist, Lpad, M, K, device=dev)
     score_work_tiles.launches[kind] += 1
     return out
 
@@ -202,18 +344,171 @@ def score_work_tiles(work_cell: torch.Tensor, qidx: torch.Tensor,
 score_work_tiles.launches = {"bf16": 0, "int8": 0}
 
 
+def _pass_shape(work_cell, lut_z, cell_codes, nprobe, scales_z):
+    """The shape arguments of both C passes: T, Q, nprobe, nlist, Lpad, M,
+    K, gm (0 for a bf16 LUT)."""
+    nlist, Lpad, M = cell_codes.shape
+    gm = 0 if scales_z is None else M // scales_z.shape[1]
+    return (work_cell.shape[0], lut_z.shape[0] - 1, nprobe, nlist, Lpad, M,
+            lut_z.shape[2], gm)
+
+
+def ivf_group_max(work_cell: torch.Tensor, slot_pair: torch.Tensor,
+                  lut_z: torch.Tensor, cell_codes: torch.Tensor,
+                  cell_len: torch.Tensor, nprobe: int,
+                  scales_z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pass 1: gmax (Q, nprobe, R) f32, the largest score of each run of
+    32 real docs of every pair's cell, in pair order (Q = Qz - 1, R =
+    ceil(Lpad / 32); see ivf_group_max_reference). Inputs as
+    score_work_tiles' with slot_pair (group_pairs) for qidx, and cell_len
+    (nlist,) int32 (cell_lengths). A CUDA tensor launches the kernel (or
+    raises); a CPU tensor takes ivf_group_max_reference. Each launch adds
+    one to ivf_group_max.launches["bf16"] or ["int8"]."""
+    kind = _check_tiles("ivf_group_max", work_cell, slot_pair, lut_z,
+                        cell_codes, scales_z, cell_len)
+    _check_cells(cell_codes, cell_len)
+    if nprobe < 1:
+        raise ValueError(f"nprobe={nprobe} < 1")
+    if lut_z.device.type == "cpu":
+        return ivf_group_max_reference(work_cell, slot_pair, lut_z,
+                                       cell_codes, cell_len, nprobe, scales_z)
+    Q, Lpad = lut_z.shape[0] - 1, cell_codes.shape[1]
+    gmax = torch.full((Q, nprobe, -(-Lpad // RUN)), -torch.inf,
+                      device=lut_z.device)
+    _launch("ivf_group_max", kind, _group_max_fn(), lut_z.data_ptr(),
+            None if scales_z is None else scales_z.data_ptr(),
+            work_cell.data_ptr(), slot_pair.data_ptr(), cell_codes.data_ptr(),
+            cell_len.data_ptr(), gmax.data_ptr(),
+            *_pass_shape(work_cell, lut_z, cell_codes, nprobe, scales_z),
+            device=lut_z.device)
+    ivf_group_max.launches[kind] += 1
+    return gmax
+
+
+ivf_group_max.launches = {"bf16": 0, "int8": 0}
+
+
+def ivf_filter(work_cell: torch.Tensor, slot_pair: torch.Tensor,
+               lut_z: torch.Tensor, cell_codes: torch.Tensor,
+               cell_ids: torch.Tensor, cell_len: torch.Tensor, nprobe: int,
+               tau: torch.Tensor, cap: int, gmax=None,
+               scales_z: Optional[torch.Tensor] = None):
+    """Pass 2: every real doc of each query's probed cells with score >=
+    tau[q].
+
+    Returns (cand_s (Q, cap) f32, cand_i (Q, cap) int64, count (Q,) int32):
+    count[q] docs pass, and min(count[q], cap) of them fill slots 0.. with
+    their score and corpus id (cell_ids (nlist, Lpad) int32), in an order
+    that varies from run to run; the other slots hold -inf and id -1. With
+    pass 1's gmax the kernel re-scans only the runs where some slot of a
+    sub-tile reaches its tau; the result is the same. A CUDA tensor
+    launches the kernel (or raises); a CPU tensor takes
+    ivf_filter_reference. Each launch adds one to
+    ivf_filter.launches["bf16"] or ["int8"].
+    """
+    kind = _check_tiles("ivf_filter", work_cell, slot_pair, lut_z, cell_codes,
+                        scales_z, cell_len, cell_ids, tau)
+    _check_cells(cell_codes, cell_len, cell_ids)
+    Q, Lpad = lut_z.shape[0] - 1, cell_codes.shape[1]
+    if tau.shape != (Q,) or tau.dtype != torch.float32:
+        raise ValueError(f"tau must be a ({Q},) f32 tensor")
+    if gmax is not None and (gmax.shape != (Q, nprobe, -(-Lpad // RUN))
+                             or gmax.dtype != torch.float32
+                             or gmax.device != lut_z.device
+                             or not gmax.is_contiguous()):
+        raise ValueError(f"gmax must be a contiguous ({Q}, {nprobe}, R) f32 "
+                         f"tensor on {lut_z.device}")
+    if nprobe < 1 or cap < 1:
+        raise ValueError(f"nprobe={nprobe} and cap={cap} must be >= 1")
+    if lut_z.device.type == "cpu":
+        return ivf_filter_reference(work_cell, slot_pair, lut_z, cell_codes,
+                                    cell_ids, cell_len, nprobe, tau, cap,
+                                    scales_z)
+    dev = lut_z.device
+    cand_s = torch.full((Q, cap), -torch.inf, device=dev)
+    cand_i = torch.full((Q, cap), -1, dtype=torch.long, device=dev)
+    count = torch.zeros(Q, dtype=torch.int32, device=dev)
+    _launch("ivf_filter", kind, _filter_fn(), lut_z.data_ptr(),
+            None if scales_z is None else scales_z.data_ptr(),
+            work_cell.data_ptr(), slot_pair.data_ptr(), cell_codes.data_ptr(),
+            cell_len.data_ptr(), cell_ids.data_ptr(), tau.data_ptr(),
+            None if gmax is None else gmax.data_ptr(), cand_s.data_ptr(),
+            cand_i.data_ptr(), count.data_ptr(),
+            *_pass_shape(work_cell, lut_z, cell_codes, nprobe, scales_z), cap,
+            device=dev)
+    ivf_filter.launches[kind] += 1
+    return cand_s, cand_i, count
+
+
+ivf_filter.launches = {"bf16": 0, "int8": 0}
+
+
+def ivf_plan(nprobe: int, Lpad: int, topk: int):
+    """(pass 1 runs, cap) of ivf_topk: where a query can have k runs of 32
+    docs (nprobe * ceil(Lpad / 32) >= k) and k < nprobe * Lpad, pass 1 runs
+    and pass 2 gets 2k candidate slots; else tau is -inf, every real doc
+    passes and cap = nprobe * Lpad."""
+    k = min(topk, nprobe * Lpad)
+    if k < nprobe * Lpad and nprobe * -(-Lpad // RUN) >= k:
+        return True, 2 * k
+    return False, nprobe * Lpad
+
+
+def ivf_topk(work_cell: torch.Tensor, slot_pair: torch.Tensor,
+             lut_z: torch.Tensor, cell_codes: torch.Tensor,
+             cell_ids: torch.Tensor, cell_len: torch.Tensor, nprobe: int,
+             topk: int, scales_z: Optional[torch.Tensor] = None):
+    """Exact top-k of each query's probed cells by IVF score, (scores, ids)
+    each (Q, min(topk, nprobe * Lpad)), sorted by score DESC, id ASC; ids
+    are corpus ids, -1 (score -inf) where a query has fewer real docs.
+
+    Pass 1 (ivf_group_max) takes the max of each run of 32 real docs;
+    tau[q], the k-th largest of the query's run maxima, is reached by k
+    distinct docs, so it bounds the k-th best score from below. Pass 2
+    (ivf_filter) keeps the real docs at or above tau: about k per query.
+    Its count is read once; above the cap (ivf_plan) pass 2 runs again with
+    cap = the count, adding one to `ivf_topk.reruns`. Where tau would be
+    -inf for every query, pass 1 is skipped. Scores equal
+    regroup_topk(score_work_tiles(...))'s bit for bit; ids equal except in
+    the order among exact ties.
+    """
+    Q, dev = lut_z.shape[0] - 1, lut_z.device
+    k = min(topk, nprobe * cell_codes.shape[1])
+    if Q <= 0 or k <= 0:
+        return (torch.empty((max(Q, 0), max(k, 0)), device=dev),
+                torch.empty((max(Q, 0), max(k, 0)), dtype=torch.long,
+                            device=dev))
+    pass1, cap = ivf_plan(nprobe, cell_codes.shape[1], k)
+    tiles = (work_cell, slot_pair, lut_z, cell_codes)
+    gmax = None
+    tau = torch.full((Q,), -torch.inf, device=dev)
+    if pass1:
+        gmax = ivf_group_max(*tiles, cell_len, nprobe, scales_z)
+        tau = torch.topk(gmax.reshape(Q, -1), k, dim=1).values[:, -1]
+        tau = tau.contiguous()
+    cand_s, cand_i, count = ivf_filter(*tiles, cell_ids, cell_len, nprobe,
+                                       tau, cap, gmax, scales_z)
+    most = int(count.max())
+    if most > cap:
+        ivf_topk.reruns += 1
+        cand_s, cand_i, count = ivf_filter(*tiles, cell_ids, cell_len, nprobe,
+                                           tau, most, gmax, scales_z)
+    return select_topk(cand_s, cand_i, k)
+
+
+ivf_topk.reruns = 0
+
+
 def regroup_topk(scores_flat: torch.Tensor, row: torch.Tensor,
                  cells: torch.Tensor, cell_ids: torch.Tensor, Q: int,
                  nprobe: int, topk: int):
-    """Each query's candidate rows gathered back (row is q-major, so this
-    is a reshape), pad slots and overflowed pairs at -inf, exact top-k
-    (pallas_ivf.py:314-336). Returns (scores, ids) on the device, ids -1
-    for a pad."""
+    """The unfused search's end (pallas_ivf.py:314-336), kept as the
+    yardstick of ivf_topk: each query's candidate rows gathered back from
+    K2's (T * QT_G, Lpad) scores (row is q-major, so this is a reshape),
+    pad slots at -inf, exact top-k. Returns (scores, ids) on the device,
+    ids -1 for a pad."""
     Lpad = cell_ids.shape[1]
-    n_rows = scores_flat.shape[0]
-    row_ok = (row < n_rows).reshape(Q, nprobe, 1)
-    cand = scores_flat[row.clamp(max=n_rows - 1)].reshape(Q, nprobe, Lpad)
-    cand = torch.where(row_ok, cand, -torch.inf).reshape(Q, nprobe * Lpad)
+    cand = scores_flat[row].reshape(Q, nprobe * Lpad)
     ids = cell_ids[cells.reshape(-1).long()].reshape(Q, nprobe * Lpad)
     cand = torch.where(ids >= 0, cand, -torch.inf)
     s, pos = torch.topk(cand, min(topk, cand.shape[1]), dim=1)
@@ -237,18 +532,18 @@ def make_lut_z(query_embeds: torch.Tensor, pq_centroids: torch.Tensor,
 
 @torch.no_grad()
 def ivf_search_device(query_embeds, pq_centroids, coarse, cell_codes,
-                      cell_ids, nprobe: int, topk: int,
+                      cell_ids, cell_len, nprobe: int, topk: int,
                       lut_dtype: str = "bf16"):
-    """Probe, group, score the tiles with K2 / K3, regroup and take the
-    top-k (pallas_ivf.py:339-385). Returns (scores, ids) on the device."""
+    """Probe, group, and take each query's top-k of its probed cells with
+    the two passes of ivf_topk (pallas_ivf.py:339-385 computes the same
+    with K2 / K3 and a regroup). Returns (scores, ids) on the device."""
     Q = query_embeds.shape[0]
-    nlist = cell_codes.shape[0]
     cells = probe_cells(query_embeds, coarse, nprobe)
-    row, work_cell, qidx, _ = group_pairs(cells, Q, nlist, nprobe)
+    _, work_cell, slot_pair = group_pairs(cells, Q, cell_codes.shape[0],
+                                          nprobe)
     lut_z, scales_z = make_lut_z(query_embeds, pq_centroids, lut_dtype)
-    scores = score_work_tiles(work_cell, qidx, lut_z, cell_codes, scales_z)
-    return regroup_topk(scores.reshape(-1, cell_codes.shape[1]), row, cells,
-                        cell_ids, Q, nprobe, topk)
+    return ivf_topk(work_cell, slot_pair, lut_z, cell_codes, cell_ids,
+                    cell_len, nprobe, topk, scales_z)
 
 
 def merge_spill(s: torch.Tensor, i: torch.Tensor, spill: Optional[CudaADCIndex],
@@ -268,10 +563,11 @@ def merge_spill(s: torch.Tensor, i: torch.Tensor, spill: Optional[CudaADCIndex],
 class CudaIVFIndex:
     """Device-resident IVF-PQ index served by the cell-grouped kernels
     (PallasIVFIndex, pallas_ivf.py:897-1028, with serving="adc" only): the
-    cell codes, ids and coarse centroids live on the device once; each
-    search probes, groups, scores with K2 (bf16 LUT) or K3 (int8 LUT) and
-    merges the spill segment, scanned with K1 (bf16 LUT). On a CPU
-    device the kernels' plain versions run instead."""
+    cell codes, ids, real-doc counts and coarse centroids live on the
+    device once; each search probes, groups, takes the top-k of the probed
+    cells with the two passes of ivf_topk (bf16 or int8 LUT) and merges
+    the spill segment, scanned with K1 (bf16 LUT). On a CPU device the
+    kernels' plain versions run instead."""
 
     def __init__(self, index: IVFIndex, serving: str = "adc", device="cuda"):
         if serving != "adc":
@@ -283,6 +579,7 @@ class CudaIVFIndex:
         self.nlist = index.nlist
         self.cell_codes = torch.as_tensor(index.cell_codes, device=self.device)
         self.cell_ids = torch.as_tensor(index.cell_ids, device=self.device)
+        self.cell_len = cell_lengths(self.cell_ids)
         self.coarse = torch.as_tensor(
             np.asarray(index.coarse_centroids, np.float32), device=self.device)
         self.spill, self.spill_ids = None, None
@@ -307,7 +604,7 @@ class CudaIVFIndex:
         q = torch.as_tensor(query_embeds, dtype=torch.float32,
                             device=self.device)
         s, i = ivf_search_device(q, self.centroids, self.coarse,
-                                 self.cell_codes, self.cell_ids,
+                                 self.cell_codes, self.cell_ids, self.cell_len,
                                  min(nprobe, self.nlist), topk, lut_dtype)
         return merge_spill(s, i, self.spill, self.spill_ids, q, topk)
 

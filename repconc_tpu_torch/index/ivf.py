@@ -317,9 +317,9 @@ def serve_search(index: IVFIndex, query_embeds, topk: int = 1000,
       "auto"   - the cell-grouped kernels (CudaIVFIndex) on a CUDA device,
                  search_xla on the CPU, as the JAX package takes Pallas on
                  the TPU and XLA elsewhere;
-      "pallas" - the cell-grouped path forced: kernels K2 (bf16 LUT) or K3
-                 (int8 LUT) on a CUDA device, their plain versions on the
-                 CPU;
+      "pallas" - the cell-grouped path forced: the two passes of
+                 cuda_ivf.ivf_topk (K2's scan with a bf16 LUT, K3's with
+                 int8) on a CUDA device, their plain versions on the CPU;
       "xla"    - search_xla, the exact fp32-LUT scan; lut_dtype does not
                  apply (a warning says so).
     Queries go in search_batch chunks, the short last chunk zero-padded, as

@@ -289,3 +289,153 @@ def test_adc_topk_on_card_matches_unfused(cuda, Q, N, M, topk, dup):
     assert torch.equal(torch.gather(scores, 1, i), s)
     assert bool((i[:, 1:] > i[:, :-1])[s[:, 1:] == s[:, :-1]].all())
     assert adc_topk.reruns == reruns + (1 if dup else 0)
+
+
+def _pass_tiles(dev, Q, nlist, nprobe, Lpad, M, lut_dtype, seed=0,
+                distinct_rows=0):
+    """Work tiles from random distinct cells per query (group_pairs), cells
+    filled to random lengths (some empty, the rest trailing pads, as
+    fill_cells leaves them) with consecutive corpus ids, and the (Q + 1)
+    LUT of either type; with distinct_rows, every cell repeats the same few
+    code rows, so many docs tie."""
+    from repconc_tpu_torch.index.cuda_ivf import (cell_lengths, group_pairs,
+                                                  make_lut_z)
+
+    g = torch.Generator(device=dev).manual_seed(seed + Q + nlist + Lpad + M)
+    cells = torch.argsort(torch.rand((Q, nlist), generator=g, device=dev),
+                          dim=1)[:, :nprobe]
+    row, work_cell, slot_pair = group_pairs(cells, Q, nlist, nprobe)
+    lens = torch.randint(0, Lpad + 1, (nlist,), generator=g, device=dev)
+    lens[torch.rand(nlist, generator=g, device=dev) < 0.1] = 0
+    real = torch.arange(Lpad, device=dev)[None, :] < lens[:, None]
+    cell_ids = torch.full((nlist, Lpad), -1, dtype=torch.int32, device=dev)
+    cell_ids[real] = torch.arange(int(real.sum()), dtype=torch.int32,
+                                  device=dev)
+    codes = torch.randint(0, 256, (nlist, Lpad, M), generator=g, device=dev,
+                          dtype=torch.uint8)
+    if distinct_rows:
+        codes[:] = codes[0, :distinct_rows].repeat(
+            -(-Lpad // distinct_rows), 1)[:Lpad]
+    q = torch.randn((Q, M * 4), generator=g, device=dev)
+    cent = torch.randn((M, 256, 4), generator=g, device=dev)
+    lut_z, scales_z = make_lut_z(q, cent, lut_dtype)
+    return dict(row=row, cells=cells, work_cell=work_cell,
+                slot_pair=slot_pair, cell_codes=codes, cell_ids=cell_ids,
+                cell_len=cell_lengths(cell_ids), lut_z=lut_z,
+                scales_z=scales_z)
+
+
+PASS_SHAPES = [  # Q, nlist, nprobe, Lpad, M: k2_check's, smaller Q
+    (300, 4096, 64, 256, 48), (300, 1024, 64, 2048, 12),
+    (256, 256, 16, 640, 12), (1, 8, 1, 256, 12), (37, 16, 5, 100, 8)]
+
+
+@pytest.mark.parametrize("Q,nlist,nprobe,Lpad,M", PASS_SHAPES)
+@pytest.mark.parametrize("lut_dtype", ["bf16", "int8"])
+def test_ivf_group_max_matches_plain(cuda, Q, nlist, nprobe, Lpad, M,
+                                     lut_dtype):
+    """Pass 1 against ivf_group_max_reference: bit for bit; pads and runs
+    with no real doc at -inf."""
+    from repconc_tpu_torch.index.cuda_ivf import (ivf_group_max,
+                                                  ivf_group_max_reference)
+
+    t = _pass_tiles(cuda, Q, nlist, nprobe, Lpad, M, lut_dtype)
+    args = (t["work_cell"], t["slot_pair"], t["lut_z"], t["cell_codes"],
+            t["cell_len"], nprobe, t["scales_z"])
+    before = dict(ivf_group_max.launches)
+    got = ivf_group_max(*args)
+    torch.cuda.synchronize()
+    assert ivf_group_max.launches[lut_dtype] == before[lut_dtype] + 1
+    assert torch.equal(got, ivf_group_max_reference(*args))
+
+
+def _same_ivf_candidates(got, want, cap):
+    """Pass 2 on the card against its plain version: equal counts; within
+    cap the same ids with bit-equal scores (both sorted by id), past cap
+    distinct ids among the plain version's passing docs."""
+    (s_g, i_g, c_g), (s_w, i_w, c_w) = got, want
+    assert torch.equal(c_g, c_w)
+    for q in range(s_g.shape[0]):
+        n = min(int(c_w[q]), cap)
+        assert bool((i_g[q, n:] == -1).all()) and bool(
+            torch.isneginf(s_g[q, n:]).all())
+        ids_g, order_g = torch.sort(i_g[q, :n])
+        if int(c_w[q]) <= cap:
+            ids_w, order_w = torch.sort(i_w[q, :n])
+            assert torch.equal(ids_g, ids_w)
+            assert torch.equal(s_g[q, :n][order_g], s_w[q, :n][order_w])
+        else:
+            assert torch.unique(ids_g).numel() == n
+
+
+@pytest.mark.parametrize("Q,nlist,nprobe,Lpad,M", PASS_SHAPES)
+@pytest.mark.parametrize("lut_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("with_gmax", [False, True])
+def test_ivf_filter_matches_plain(cuda, Q, nlist, nprobe, Lpad, M, lut_dtype,
+                                  with_gmax):
+    """Pass 2 against ivf_filter_reference at a threshold from pass 1 (k =
+    100, or -inf where a query has fewer runs): the same counts and
+    candidate sets with bit-equal scores; a cap of 60 leaves some queries
+    past it; skipping runs by gmax changes nothing."""
+    from repconc_tpu_torch.index.cuda_ivf import (ivf_filter,
+                                                  ivf_filter_reference,
+                                                  ivf_group_max_reference)
+
+    t = _pass_tiles(cuda, Q, nlist, nprobe, Lpad, M, lut_dtype, seed=1)
+    tiles = (t["work_cell"], t["slot_pair"], t["lut_z"], t["cell_codes"])
+    gmax = ivf_group_max_reference(*tiles, t["cell_len"], nprobe,
+                                   t["scales_z"])
+    flat = gmax.reshape(Q, -1)
+    tau = torch.topk(flat, min(100, flat.shape[1]), dim=1).values[:, -1]
+    tau = tau.contiguous()
+    rest = (t["cell_ids"], t["cell_len"], nprobe, tau)
+    for cap in (60, 4000):
+        before = dict(ivf_filter.launches)
+        got = ivf_filter(*tiles, *rest, cap, gmax if with_gmax else None,
+                         t["scales_z"])
+        torch.cuda.synchronize()
+        assert ivf_filter.launches[lut_dtype] == before[lut_dtype] + 1
+        want = ivf_filter_reference(*tiles, *rest, cap, t["scales_z"])
+        _same_ivf_candidates(got, want, cap)
+
+
+@pytest.mark.parametrize("Q,nlist,nprobe,Lpad,M,topk,dup", [
+    (300, 4096, 64, 256, 48, 1000, 0), (300, 1024, 64, 2048, 12, 1000, 0),
+    (256, 256, 16, 640, 12, 100, 0), (64, 256, 16, 640, 12, 50, 3),
+    (37, 16, 5, 100, 8, 10, 0)])
+@pytest.mark.parametrize("lut_dtype", ["bf16", "int8"])
+def test_ivf_topk_on_card_matches_unfused(cuda, Q, nlist, nprobe, Lpad, M,
+                                          topk, dup, lut_dtype):
+    """The two-pass IVF search against K2 / K3 + regroup_topk on the same
+    tiles: scores bit for bit, ids equal except in the order among exact
+    ties (where ivf_topk takes the lower id); the first shape has fewer
+    runs than k (tau -inf, pass 1 skipped), the tied one forces a rerun."""
+    from repconc_tpu_torch.index.cuda_ivf import (ivf_plan, ivf_topk,
+                                                  regroup_topk,
+                                                  score_work_tiles,
+                                                  slot_queries)
+
+    t = _pass_tiles(cuda, Q, nlist, nprobe, Lpad, M, lut_dtype, seed=2,
+                    distinct_rows=dup)
+    reruns = ivf_topk.reruns
+    s, i = ivf_topk(t["work_cell"], t["slot_pair"], t["lut_z"],
+                    t["cell_codes"], t["cell_ids"], t["cell_len"], nprobe,
+                    topk, t["scales_z"])
+    scores = score_work_tiles(t["work_cell"],
+                              slot_queries(t["slot_pair"], nprobe, Q),
+                              t["lut_z"], t["cell_codes"], t["scales_z"])
+    s_u, i_u = regroup_topk(scores.reshape(-1, Lpad), t["row"], t["cells"],
+                            t["cell_ids"], Q, nprobe, topk)
+    assert torch.equal(s, s_u)
+    above = s > s[:, -1:]
+    big = torch.iinfo(torch.long).max
+    assert torch.equal(torch.sort(torch.where(above, i, big), 1).values,
+                       torch.sort(torch.where(above, i_u.long(), big),
+                                  1).values)
+    assert bool((i[:, 1:] > i[:, :-1])[
+        (s[:, 1:] == s[:, :-1]) & torch.isfinite(s[:, 1:])].all())
+    assert bool((i[torch.isneginf(s)] == -1).all())
+    if dup:
+        assert ivf_topk.reruns == reruns + 1
+    if topk == 1000 and Lpad == 256:
+        assert ivf_plan(nprobe, Lpad, topk)[0] is False

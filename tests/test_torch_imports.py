@@ -144,24 +144,48 @@ def _ivf_scan_inputs(lut_dtype):
     return score_work_tiles, args
 
 
+def _ivf_pass_inputs(kernel):
+    """Inputs of a pass of the two-pass IVF search: tiles of one occupied
+    slot (pair 0, nprobe 1) over cells of 128 and 5 real docs."""
+    from repconc_tpu_torch.index.cuda_ivf import ivf_filter, ivf_group_max
+
+    int8 = kernel.endswith("_i8")
+    lut = torch.zeros((5, 8, 32), dtype=torch.int8 if int8 else torch.bfloat16)
+    slot_pair = torch.full((3, 32), -1, dtype=torch.int32)
+    slot_pair[0, 0] = 0
+    tiles = [torch.zeros(3, dtype=torch.int32), slot_pair, lut,
+             torch.zeros((2, 128, 8), dtype=torch.uint8)]
+    cell_len = torch.tensor([128, 5], dtype=torch.int32)
+    scales = torch.ones((5, 2)) if int8 else None
+    if kernel.startswith("ivf_group_max"):
+        return ivf_group_max, tiles + [cell_len, 1, scales]
+    cell_ids = torch.arange(256, dtype=torch.int32).reshape(2, 128)
+    return ivf_filter, tiles + [cell_ids, cell_len, 1, torch.zeros(4), 5,
+                                None, scales]
+
+
 @pytest.mark.parametrize("kernel", ["adc_scan_i8", "ivf_scan_bf16",
-                                    "ivf_scan_i8"])
+                                    "ivf_scan_i8", "ivf_group_max_bf16",
+                                    "ivf_group_max_i8", "ivf_filter_bf16",
+                                    "ivf_filter_i8"])
 @pytest.mark.parametrize("where", ["meta", "mixed"])
 def test_new_kernel_wrappers_raise_instead_of_falling_back(kernel, where):
-    """adc_scores_int8 (K4) and score_work_tiles (K2 / K3) take their plain
+    """adc_scores_int8 (K4), score_work_tiles (K2 / K3) and the passes of
+    the two-pass IVF search (ivf_group_max, ivf_filter) take their plain
     versions only for CPU tensors; a tensor they cannot launch on raises
     and counts no launch."""
     if kernel == "adc_scan_i8":
         fn, args = _int8_scan_inputs()
+    elif kernel.startswith(("ivf_group_max", "ivf_filter")):
+        fn, args = _ivf_pass_inputs(kernel)
     else:
         fn, args = _ivf_scan_inputs("int8" if kernel == "ivf_scan_i8" else "bf16")
     before = repr(fn.launches)
     fn(*args)  # CPU tensors: the plain version, no launch
     assert repr(fn.launches) == before
-    if where == "meta":
-        args = [a.to("meta") for a in args]
-    else:
-        args[-1] = args[-1].to("meta")
+    tensors = [k for k, a in enumerate(args) if torch.is_tensor(a)]
+    for k in tensors if where == "meta" else tensors[-1:]:
+        args[k] = args[k].to("meta")
     with pytest.raises(ValueError):
         fn(*args)
     assert repr(fn.launches) == before

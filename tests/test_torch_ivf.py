@@ -174,40 +174,62 @@ def _cells(seed, Q, nlist, nprobe):
                      for _ in range(Q)]).astype(np.int32)
 
 
+def _at_budget(row, work_cell, slot_pair, Q, nprobe, T_max):
+    """What JAX's _group_pairs returns at a static budget of T_max tiles,
+    derived from the port's exact grid: the same rows; the first T_max
+    tiles' cells and slot queries, unused tiles at cell 0 and query Q; and
+    the overflow, the pairs whose tile falls past T_max (dropped)."""
+    T = work_cell.shape[0]
+    n = min(T, T_max)
+    wc = np.zeros(T_max, np.int32)
+    wc[:n] = work_cell.numpy()[:n]
+    qidx = np.full((T_max, cuda_ivf.QT_G), Q, np.int32)
+    qidx[:n] = cuda_ivf.slot_queries(slot_pair, nprobe, Q).numpy()[:n]
+    overflow = int((row.numpy() // cuda_ivf.QT_G >= T_max).sum())
+    return row.numpy(), wc, qidx, overflow
+
+
 @pytest.mark.parametrize("Q,nlist,nprobe,factor", [
     (64, 32, 4, 1.35), (64, 16, 8, 1.35), (40, 32, 32, 1.35),
     (64, 16, 4, 0.01)])  # the last forces an overflow
 def test_group_pairs_matches_jax(Q, nlist, nprobe, factor):
-    """At JAX's own _tile_budget T_max, the port's grouping gives equal
-    rows, tile cells, slot queries and overflow count."""
+    """At JAX's own _tile_budget T_max, the port's exact grouping, cut to
+    that budget, gives JAX's rows, tile cells, slot queries and overflow
+    count."""
     cells = _cells(Q + nlist, Q, nlist, nprobe)
     T_max = jax_pivf._tile_budget(Q, nprobe, nlist, factor)
     _, want_row, want_wc, want_qidx, want_ov = jax_pivf._group_pairs(
         jnp.asarray(cells), Q, nlist, nprobe, T_max)
-    row, wc, qidx, ov = cuda_ivf.group_pairs(torch.from_numpy(cells), Q, nlist,
-                                             nprobe, T_max)
-    np.testing.assert_array_equal(row.numpy(), np.asarray(want_row))
-    np.testing.assert_array_equal(wc.numpy(), np.asarray(want_wc))
-    np.testing.assert_array_equal(qidx.numpy(), np.asarray(want_qidx))
-    assert int(ov) == int(want_ov)
+    row, wc, qidx, ov = _at_budget(*cuda_ivf.group_pairs(
+        torch.from_numpy(cells), Q, nlist, nprobe), Q, nprobe, T_max)
+    np.testing.assert_array_equal(row, np.asarray(want_row))
+    np.testing.assert_array_equal(wc, np.asarray(want_wc))
+    np.testing.assert_array_equal(qidx, np.asarray(want_qidx))
+    assert ov == int(want_ov)
     if factor < 1:
-        assert int(ov) > 0
+        assert ov > 0
 
 
 @pytest.mark.parametrize("Q,nlist,nprobe", [(64, 32, 4), (64, 16, 8), (1, 8, 1)])
 def test_exact_tile_grid_is_what_jax_occupies(Q, nlist, nprobe):
-    """T_max=None sizes the grid to the tiles JAX's grouping occupies at
-    its worst-case budget; nothing overflows."""
+    """The exact grid has the tiles JAX's grouping occupies at its
+    worst-case budget, with its slot queries; every pair has one slot, and
+    slot_pair maps each slot row back to its pair."""
     cells = _cells(Q * 3 + nlist, Q, nlist, nprobe)
     T_worst = Q * nprobe // cuda_ivf.QT_G + nlist + 1
     *_, want_qidx, _ = jax_pivf._group_pairs(jnp.asarray(cells), Q, nlist,
                                              nprobe, T_worst)
     occupied = int((np.asarray(want_qidx) != Q).any(1).sum())
-    _, wc, qidx, ov = cuda_ivf.group_pairs(torch.from_numpy(cells), Q, nlist,
-                                           nprobe)
-    assert wc.shape[0] == occupied and int(ov) == 0
-    np.testing.assert_array_equal(qidx.numpy(),
-                                  np.asarray(want_qidx)[:occupied])
+    row, wc, slot_pair = cuda_ivf.group_pairs(torch.from_numpy(cells), Q,
+                                              nlist, nprobe)
+    assert wc.shape[0] == occupied and slot_pair.shape == (occupied,
+                                                           cuda_ivf.QT_G)
+    np.testing.assert_array_equal(
+        cuda_ivf.slot_queries(slot_pair, nprobe, Q).numpy(),
+        np.asarray(want_qidx)[:occupied])
+    np.testing.assert_array_equal(slot_pair.reshape(-1)[row].numpy(),
+                                  np.arange(Q * nprobe))
+    assert int((slot_pair >= 0).sum()) == Q * nprobe
 
 
 # ---- quantization and the plain scorers ----------------------------------
@@ -232,8 +254,9 @@ def test_quantize_lut_int8_matches_jax(M, K):
 def _tile_inputs(seed, Q, nlist, Lpad, M, K, nprobe):
     rng = np.random.default_rng(seed)
     cells = _cells(seed, Q, nlist, nprobe)
-    _, wc, qidx, _ = cuda_ivf.group_pairs(torch.from_numpy(cells), Q, nlist,
-                                          nprobe)
+    _, wc, slot_pair = cuda_ivf.group_pairs(torch.from_numpy(cells), Q, nlist,
+                                            nprobe)
+    qidx = cuda_ivf.slot_queries(slot_pair, nprobe, Q)
     codes = rng.integers(0, K, size=(nlist, Lpad, M)).astype(np.uint8)
     lut = rng.normal(size=(Q, M, K)).astype(np.float32)
     return wc, qidx, codes, lut
