@@ -71,7 +71,22 @@ shows where it stopped:
                 the ranking equals the flat ranking except near-ties; the
                 int8 LUT run and nprobe=8 recall; every run's scores
                 re-summed as in phase 6; TREC run written and scored
-  8 kernels     one JSON line per the port's kernel table
+  8 train_stage1
+                stage-1 training at full width (the M=12 config, seeded
+                weights, the CLI's defaults: 64 queries + 64 positives + 64
+                random negatives a step, lengths 16 / 128, the Sinkhorn
+                constraint at eps 0.003 and 100 iterations) through
+                train/stage1.py::train: 10 steps, saves every 5, one
+                validation over 8,192 docs and 256 queries through the flat
+                search, where both passes of K1 must launch; finite losses,
+                final/params.msgpack read back equal to the model, a second
+                train call resumes and stops at once, one step's
+                constrained codes card == CPU except near-ties, an 8-query
+                step (argmin codes) card == CPU; the median step time,
+                training queries/s
+                and docs/s, the step split into encoder, Sinkhorn, decode +
+                loss and optimizer (CUDA events), peak memory, validation s
+  9 kernels     one JSON line per the port's kernel table
 
 The last lines are the kernels line, the card's `nvidia-smi` name and power
 limit, and {"ok": true, "device": {...}}. Any failure raises and exits
@@ -559,7 +574,8 @@ def phase_full_scan(dev):
 class HashTokenizer:
     """Stand-in for a BERT tokenizer, so the smoke run needs no
     `transformers`: lower-cased whitespace words hashed into the vocab between
-    [CLS] and [SEP], padded to the longest row, with the HF call
+    [CLS] and [SEP], padded to the longest row (or to max_length with
+    padding="max_length", as the training collator asks), with the HF call
     convention."""
 
     pad_id, cls_id, sep_id, first_word_id = 0, 101, 102, 1000
@@ -579,18 +595,20 @@ class HashTokenizer:
             if truncation:
                 ids = ids[:max_length - 2]
             rows.append([self.cls_id] + ids + [self.sep_id])
-        width = max(len(r) for r in rows)
+        width = (max_length if padding == "max_length"
+                 else max(len(r) for r in rows))
         return {"input_ids": [r + [self.pad_id] * (width - len(r)) for r in rows],
                 "attention_mask": [[1] * len(r) + [0] * (width - len(r))
                                    for r in rows]}
 
 
-def synthetic_data(n_docs: int = 65_536, n_queries: int = 256):
+def synthetic_data(n_docs: int = 65_536, n_queries: int = 256,
+                   seed: int = SEED):
     """Docs of 16-128 words from a Zipf-like vocabulary; each query is a
     prefix of one doc, which is its only judged-relevant doc."""
     import numpy as np
 
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     words = np.array([f"w{j}" for j in range(20_000)])
     p = 1.0 / np.arange(1, len(words) + 1)
     p /= p.sum()
@@ -608,12 +626,26 @@ def synthetic_data(n_docs: int = 65_536, n_queries: int = 256):
     return corpus, queries, qrels
 
 
+def m12_config():
+    """The config of the M=12 checkpoint (artifacts/r5h_m12_conc_best.tar):
+    bert-base with a 7,905-word vocabulary, mean pooling, METRIC_IP, M=12,
+    K=256, sk_epsilon 0.003 and sk_iters 100."""
+    from repconc_tpu_torch.core.config import EncoderConfig, RepConcConfig
+
+    return RepConcConfig(
+        encoder=EncoderConfig(model_type="bert", vocab_size=7905,
+                              hidden_size=768, num_hidden_layers=12,
+                              num_attention_heads=12, intermediate_size=3072,
+                              max_position_embeddings=512, type_vocab_size=2,
+                              pooling="mean"),
+        MCQ_M=12, MCQ_K=256, similarity_metric="METRIC_IP")
+
+
 def phase_main_path(dev):
     import copy
 
     import numpy as np
     import torch
-    from repconc_tpu_torch.core.config import EncoderConfig, RepConcConfig
     from repconc_tpu_torch.core.profiling import Stopwatch
     from repconc_tpu_torch.eval.encode import encode_queries, encode_texts
     from repconc_tpu_torch.eval.pipeline import repconc_retrieval
@@ -622,14 +654,7 @@ def phase_main_path(dev):
     from repconc_tpu_torch.index.adc import build_lut, score_codes_reference
     from repconc_tpu_torch.models.repconc_model import RepConcModel, init_random_
 
-    # the config of the M=12 checkpoint (artifacts/r5h_m12_conc_best.tar)
-    config = RepConcConfig(
-        encoder=EncoderConfig(model_type="bert", vocab_size=7905,
-                              hidden_size=768, num_hidden_layers=12,
-                              num_attention_heads=12, intermediate_size=3072,
-                              max_position_embeddings=512, type_vocab_size=2,
-                              pooling="mean"),
-        MCQ_M=12, MCQ_K=256, similarity_metric="METRIC_IP")
+    config = m12_config()
     cpu_model = init_random_(RepConcModel(config),
                              torch.Generator().manual_seed(SEED), std=0.02)
     model = copy.deepcopy(cpu_model).to(dev)
@@ -1476,6 +1501,274 @@ def phase_ivf_main_path(dev, main):
     return {k: v["launches"] for k, v in runs.items()}
 
 
+def write_training_files(root: str, corpus, queries, qrels):
+    """The TSVs QDRelDataset reads: corpus, queries and qrels."""
+    paths = {k: os.path.join(root, f"{k}.tsv")
+             for k in ("corpus", "queries", "qrels")}
+    with open(paths["corpus"], "w") as f:
+        f.writelines(f"{d}\t{t}\n" for d, t in corpus.items())
+    with open(paths["queries"], "w") as f:
+        f.writelines(f"{q}\t{t}\n" for q, t in queries.items())
+    with open(paths["qrels"], "w") as f:
+        f.writelines(f"{q} 0 {d} {r}\n" for q, ds in qrels.items()
+                     for d, r in ds.items())
+    return paths
+
+
+def step_split_ms(model, hp, tx, batch, seeds, reps: int = 3):
+    """One stage-1 step cut into its parts, each timed with CUDA events
+    (median of `reps` steps): the encoder's forward and backward, the
+    constrained encode (Sinkhorn), decode + loss (forward and backward) and
+    the optimizer. The parts are train/stage1.py::loss_fn's, with the
+    encoder's backward run from the gradients of its outputs."""
+    import torch
+    from repconc_tpu_torch.quant import codebook, losses
+    from repconc_tpu_torch.train import stage1
+
+    config = model.config
+    parts = {k: [] for k in ("encoder_fwd_bwd", "constrained_encode",
+                             "decode_loss", "optimizer", "step")}
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        tx.zero_grad()
+        ev[0].record()
+        enc = {k: stage1.encode_chunked(model, batch[f"{k}_input_ids"],
+                                        batch[f"{k}_attention_mask"],
+                                        hp.cache_chunk_size, seeds)
+               for k in ("query", "pos", "neg")}
+        doc = torch.cat([enc["pos"], enc["neg"]], 0)
+        ev[1].record()
+        codes = codebook.encode(doc, model.centroids, use_constraint=True,
+                                sk_epsilon=config.sk_epsilon,
+                                sk_iters=config.sk_iters)
+        ev[2].record()
+        q_leaf = enc["query"].detach().requires_grad_()
+        d_leaf = doc.detach().requires_grad_()
+        quantized = codebook.decode(codes, model.centroids)
+        doc_ids = torch.cat([batch["pos_docids"], batch["neg_docids"]])
+        mask = (losses.false_negative_mask(batch["qids"], doc_ids,
+                                           batch["query_positives"])
+                | losses.duplicate_negative_mask(batch["qids"], doc_ids))
+        loss = losses.contrastive_loss(
+            q_leaf, losses.straight_through(quantized, d_leaf), mask,
+            config.MCQ_M) + hp.mse_loss_weight * losses.mse_loss(quantized,
+                                                                 d_leaf)
+        loss.backward()
+        ev[3].record()
+        torch.autograd.backward([enc["query"], doc], [q_leaf.grad, d_leaf.grad])
+        ev[4].record()
+        tx.step()
+        ev[5].record()
+        ev[5].synchronize()
+        t = [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
+        parts["encoder_fwd_bwd"].append(t[0] + t[3])
+        parts["constrained_encode"].append(t[1])
+        parts["decode_loss"].append(t[2])
+        parts["optimizer"].append(t[4])
+        parts["step"].append(ev[0].elapsed_time(ev[5]))
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def phase_train_stage1(dev):
+    """Stage-1 training at full width through train/stage1.py::train (the
+    card has no `transformers`, so not through the CLI, whose tokenizer
+    loader needs it): the M=12 config with seeded weights, the CLI's
+    defaults (64 queries, one random negative each, query / doc lengths 16
+    / 128, the constraint on, lr 2e-5, centroid lr 5e-4, clip 1.0), 10
+    steps, logging every 5, saves every 5 and a validation at step 10 over
+    8,192 docs and 256 queries through the flat search (K1's two passes).
+    """
+    import copy
+
+    import numpy as np
+    import torch
+    from repconc_tpu_torch.core.checkpoint import load_params, params_to_bytes
+    from repconc_tpu_torch.eval.pipeline import evaluate_repconc_model
+    from repconc_tpu_torch.models.convert import to_jax_params
+    from repconc_tpu_torch.models.repconc_model import RepConcModel, init_random_
+    from repconc_tpu_torch.quant import codebook, sinkhorn
+    from repconc_tpu_torch.train import stage1
+    from repconc_tpu_torch.train.data import (FinetuneCollator, QDRelDataset,
+                                              batch_iterator)
+
+    config = m12_config()
+    init = init_random_(RepConcModel(config),
+                        torch.Generator().manual_seed(SEED + 1), std=0.02)
+    tok = HashTokenizer(config.encoder.vocab_size)
+    hp = stage1.Stage1Hparams(total_steps=10, logging_steps=5, eval_steps=10,
+                              save_steps=5)
+    batch_size, max_query_len, max_doc_len = 64, 16, 128
+    valid = synthetic_data(n_docs=8192, n_queries=256, seed=SEED + 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_training_files(
+            tmp, *synthetic_data(n_docs=8192, n_queries=1024, seed=SEED + 1))
+        dataset = QDRelDataset(paths["qrels"], paths["queries"],
+                               paths["corpus"], negative="random",
+                               negative_per_query=1, sep_token=tok.sep_token)
+        collator = FinetuneCollator(tok, max_query_len, max_doc_len)
+
+        def batches(size=batch_size, seed=SEED):
+            return batch_iterator(dataset, collator, size, seed=seed)
+
+        out_dir = os.path.join(tmp, "out")
+        model = copy.deepcopy(init)
+        logs = []
+        reset_launches()
+        t0 = time.perf_counter()
+        out = stage1.train(model, batches(), hp, out_dir, tokenizer=tok,
+                           valid_set=valid, log_fn=logs.append, device=dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = launch_counts()
+        check(launches["adc_group_max"] > 0 and launches["adc_filter"] > 0,
+              f"the validation launched both passes of K1 ({launches})")
+        check(out["step"] == hp.total_steps and len(out["history"]) == 2,
+              f"trained {out['step']} steps, logged {len(out['history'])}")
+        check(all(np.isfinite(h[k]) for h in out["history"]
+                  for k in ("loss", "contrastive_loss", "mse_loss",
+                            "grad_norm")), "finite losses")
+        evals = [m for m in logs if "eval_MRR@10" in m]
+        check(len(evals) == 1 and 0.0 <= evals[0]["eval_MRR@10"] <= 1.0,
+              "one validation with MRR@10 in [0, 1]")
+        saved = load_params(os.path.join(out_dir, "final"))
+        check(params_to_bytes(saved) == params_to_bytes(to_jax_params(model)),
+              "final/params.msgpack reads back equal to the model (every "
+              "key, dtype, shape and value)")
+        check(os.path.exists(os.path.join(out_dir, "best", "params.msgpack")),
+              "best/ written")
+        again = stage1.train(copy.deepcopy(init), batches(), hp, out_dir,
+                             tokenizer=tok, valid_set=valid, device=dev)
+        check(again["step"] == hp.total_steps and again["history"] == []
+              and all(torch.equal(a, b) for a, b in zip(
+                  again["model"].state_dict().values(),
+                  model.state_dict().values())),
+              "a second train call resumes at step 10 and stops at once")
+        del again
+
+        # the constrained codes of one step's docs, card against CPU
+        b = {k: torch.as_tensor(v).to(dev) for k, v in next(batches()).items()}
+        with torch.no_grad():
+            docs = torch.cat([
+                model.encode_continuous(b[f"{k}_input_ids"],
+                                        b[f"{k}_attention_mask"])
+                for k in ("pos", "neg")])
+        cent = model.centroids.detach()
+        on_card = codebook.encode(docs, cent, use_constraint=True).cpu()
+        on_cpu = codebook.encode(docs.cpu(), cent.cpu(), use_constraint=True)
+        logq = sinkhorn.sinkhorn_log(-sinkhorn.center_distances(
+            codebook.pairwise_sqdist(docs.cpu(), cent.cpu())), 0.003, 100)
+        top2 = logq.topk(2, dim=-1).values
+        tied = (top2[..., 0] - top2[..., 1] < 1e-3).T
+        check(bool((on_card[~tied] == on_cpu[~tied]).all())
+              and float(tied.float().mean()) < 0.25,
+              f"constrained codes card == CPU except near-ties "
+              f"({float(tied.float().mean()):.4f} tied)")
+
+        # one step at 8 queries, no dropout, card against CPU. Its 16 docs
+        # take argmin codes: against K = 256 centroids the constraint
+        # splits each of 16 docs evenly over ~16 centroids, so every
+        # constrained argmax is an exact tie that rounding decides (the
+        # constrained codes are held above, at the step's 128 docs)
+        small = next(batches(8, SEED + 3))
+        hp_small = stage1.Stage1Hparams(**dict(hp.__dict__,
+                                               use_constraint=False))
+        step_out = {}
+        for where, m, d in (("cpu", copy.deepcopy(init), "cpu"),
+                            ("card", copy.deepcopy(init).to(dev), dev)):
+            tx = stage1.make_optimizer(hp_small, m)
+            metrics = stage1.make_train_step(m, hp_small, tx)(
+                {k: torch.as_tensor(v).to(d) for k, v in small.items()})
+            step_out[where] = (
+                {k: float(v) for k, v in metrics.items()},
+                {n: p.grad.cpu() for n, p in m.named_parameters()},
+                {n: v.cpu() for n, v in m.state_dict().items()})
+        (m_cpu, g_cpu, p_cpu), (m_card, g_card, p_card) = (
+            step_out["cpu"], step_out["card"])
+        loss_gap = max(abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
+                       for k in m_cpu)
+        # The attention key biases' gradient is zero in exact arithmetic
+        # (softmax is shift-invariant along a row), and elsewhere a few
+        # elements' gradients lie within the gradients' agreement of zero:
+        # Adam's first step is lr * g / (|g| + eps), so their steps may
+        # differ by up to 2 lr. Every other parameter within 1e-6.
+        key = [n for n in g_cpu if n.endswith("key.bias")]
+        top = max(float(g.abs().max()) for g in g_cpu.values())
+        grad_gap = max(float((g_card[n] - g).abs().max())
+                       / max(float(g.abs().max()), 1e-12)
+                       for n, g in g_cpu.items() if n not in key)
+        key_grad_gap = max(float((g_card[n] - g_cpu[n]).abs().max())
+                           for n in key) / top
+        param_gap, free_gap, free_moved = 0.0, 0.0, 0
+        for n, g in g_cpu.items():
+            d = (p_card[n] - p_cpu[n]).abs()
+            free = (torch.ones_like(g, dtype=torch.bool) if n in key else
+                    g.abs() <= 1e-4 * g.abs().max())
+            lr = hp.centroid_learning_rate if n == "centroids" else hp.learning_rate
+            d_fixed, d_free = d[~free], d[free]
+            if d_fixed.numel():
+                param_gap = max(param_gap, float(d_fixed.max()))
+            if d_free.numel():
+                free_gap = max(free_gap, float(d_free.max()) / lr)
+            free_moved += int((d[free] > 1e-6).sum())
+        check(loss_gap <= 1e-5 and grad_gap <= 1e-4 and key_grad_gap <= 1e-6
+              and param_gap <= 1e-6 and free_gap <= 2.0,
+              f"8-query step card == CPU (metrics {loss_gap:.2e} rel, "
+              f"gradients {grad_gap:.2e} of each max, key-bias gradients "
+              f"{key_grad_gap:.2e} of the largest, parameters "
+              f"{param_gap:.2e}; those with a gradient within 1e-4 of its "
+              f"array's max of zero, and the key biases, {free_gap:.3f} lr, "
+              f"{free_moved} above 1e-6)")
+        del step_out
+
+        # timings on the trained model, the full batch, dropout on
+        full = {k: torch.as_tensor(v).to(dev) for k, v in next(batches()).items()}
+        seeds = torch.Generator().manual_seed(SEED)
+        tx = stage1.make_optimizer(hp, model)
+        step_fn = stage1.make_train_step(model, hp, tx)
+        step_ms = time_ms(lambda: step_fn(full, seeds), reps=5, warmup=1)
+        torch.cuda.reset_peak_memory_stats()
+        step_fn(full, seeds)
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        split = step_split_ms(model, hp, tx, full, seeds)
+        docs_sk = torch.randn((2 * batch_size, config.hidden_size),
+                              generator=torch.Generator().manual_seed(SEED),
+                              ).to(dev)
+        sinkhorn_ms = time_ms(lambda: codebook.encode(
+            docs_sk, cent, use_constraint=True), reps=5)
+        t0 = time.perf_counter()
+        eval_m = evaluate_repconc_model(model, tok, *valid, max_seq_length=512,
+                                        topk=10, device=dev)
+        torch.cuda.synchronize()
+        valid_s = time.perf_counter() - t0
+    docs = 2 * batch_size
+    emit("train_stage1", steps=out["step"], launches=launches,
+         train_call_s=train_s, history=out["history"], eval=evals[0],
+         step_ms=step_ms, queries_per_s=batch_size / step_ms * 1e3,
+         docs_per_s=docs / step_ms * 1e3, step_split_ms=split,
+         sinkhorn_ms=sinkhorn_ms,
+         sinkhorn_shape={"M": config.MCQ_M, "B": docs, "K": config.MCQ_K,
+                         "iters": config.sk_iters},
+         peak_memory_gb=peak_gb, validation_s=valid_s,
+         validation_mrr_at_10=eval_m["MRR@10"],
+         validation_docs=len(valid[0]), validation_queries=len(valid[1]),
+         codes_tied_share=float(tied.float().mean()),
+         step_card_vs_cpu={"metrics_rel": loss_gap, "grad_rel": grad_gap,
+                           "key_bias_grad_rel": key_grad_gap,
+                           "param_abs": param_gap,
+                           "near_zero_grad_param_lr": free_gap,
+                           "near_zero_grad_moved": free_moved})
+    print(f"train_stage1 step_ms {step_ms:.3f} queries_per_s "
+          f"{batch_size / step_ms * 1e3:.1f} docs_per_s "
+          f"{docs / step_ms * 1e3:.1f}", flush=True)
+    print("train_stage1 split_ms " + " ".join(
+        f"{k} {v:.3f}" for k, v in split.items()), flush=True)
+    print(f"train_stage1 peak_memory_gb {peak_gb:.3f} validation_s "
+          f"{valid_s:.3f} sinkhorn_ms {sinkhorn_ms:.3f}", flush=True)
+    print(card_line(), flush=True)
+    return dict(launches=launches)
+
+
 def build_all():
     """nvcc on every source at once, one thread each (each build is its
     own process); one build line per source with ptxas's registers and
@@ -1572,6 +1865,7 @@ def main() -> int:
     ivf_scale, ivf_breakdown_ms = phase_ivf_scale(dev)
     main_path = phase_main_path(dev)
     ivf_runs = phase_ivf_main_path(dev, main_path)
+    train_run = phase_train_stage1(dev)
 
     # launches on the paths: both passes of the K1 top-k on the flat main
     # path (phase 4); both passes of the IVF top-k on the IVF path, with
@@ -1626,6 +1920,8 @@ def main() -> int:
         "ivf_main_path": {name: {k: r[k] for k in ("adc_group_max",
                                                    "adc_filter")}
                           for name, r in ivf_runs.items()},
+        "train_stage1": {k: train_run["launches"][k]
+                         for k in ("adc_group_max", "adc_filter")},
     }
     check(all(v > 0 for v in elsewhere["full_scan"].values())
           and all(v > 0 for r in elsewhere["ivf_scale"].values()

@@ -85,10 +85,10 @@ def check_ported(args) -> None:
     back to another path."""
     pending = [
         (args.serving in ("decoded", "decoded_int8"), f"--serving {args.serving}",
-         "Queue 1 item 7 (decoded residency)"),
-        (args.data_parallel, "--data_parallel", "Queue 1 item 12 (multi-GPU)"),
+         "Queue 1 item 8 (decoded residency)"),
+        (args.data_parallel, "--data_parallel", "Queue 1 item 10 (multi-GPU)"),
         (args.token_cache_dir is not None, "--token_cache_dir",
-         "Queue 1 item 5 (TokenCache)"),
+         "Queue 1 item 4 (TokenCache)"),
     ]
     for hit, flag, item in pending:
         if hit:

@@ -7,10 +7,10 @@ The corpus is sorted longest-first, so bucket transitions are monotone and
 padding waste is small. Padding never changes a row's result: padded keys
 get the -1e9 additive mask.
 
-Not ported yet (ROADMAP.md, Queue 1 item 5): the producer thread that
-overlaps tokenization with device work, the shard-resumable corpus cache
-and TokenCache. PyTorch runs eagerly, so the JAX package's padding of the
-last batch to a fixed shape (a compile-cache measure) is dropped.
+Not ported yet: the producer thread that overlaps tokenization with device
+work and TokenCache (ROADMAP.md, Queue 1 item 4), and the shard-resumable
+corpus cache (item 1a). PyTorch runs eagerly, so the JAX package's padding
+of the last batch to a fixed shape (a compile-cache measure) is dropped.
 
 Adapter tokenizer protocol: if the tokenizer's __call__ accepts
 `input_text_type`, it is passed "query"/"doc".
@@ -69,8 +69,8 @@ def encode_texts(texts, model, tokenizer, max_seq_length: int,
                  ) -> np.ndarray:
     """Encode texts to codes (uint8, output="code") or fp32 embeddings.
 
-    `model` is a RepConcModel already on `device`; it runs in eval mode
-    (dropout off) and is put back in its previous mode afterwards."""
+    `model` is a RepConcModel already on `device`; it encodes without
+    dropout (no generator, models/transformer.py)."""
     if output not in ("code", "continuous_embedding"):
         raise ValueError(f"unknown output {output!r}")
     dev = resolve_device(device)
@@ -90,29 +90,24 @@ def encode_texts(texts, model, tokenizer, max_seq_length: int,
                         dtype=np.uint8 if output == "code" else np.float32)
     sw = stopwatch if stopwatch is not None else Stopwatch()
     pad_id = config.encoder.pad_token_id
-    was_training = model.training
-    model.eval()
     outs = []
-    try:
-        for start in range(0, n, batch_size):
-            with sw("tokenize"):
-                ids, mask = tokenize_batch(tokenizer,
-                                           list(texts[start:start + batch_size]),
-                                           max_seq_length, input_text_type)
-                ids, mask = pad_to_bucket(ids, mask, max_seq_length, pad_id)
-            with sw("device_encode"):
-                ids_t = torch.from_numpy(ids).to(dev)
-                mask_t = torch.from_numpy(mask).to(dev)
-                if output == "code":
-                    res = model(ids_t, mask_t, return_code=True).discrete_codes
-                    res = res.to(torch.uint8)
-                else:
-                    res = model.encode_continuous(ids_t, mask_t)
-                outs.append(res.cpu().numpy())
-            if verbose and (start // batch_size) % 50 == 0:
-                logger.info("encoded %d/%d", min(start + batch_size, n), n)
-    finally:
-        model.train(was_training)
+    for start in range(0, n, batch_size):
+        with sw("tokenize"):
+            ids, mask = tokenize_batch(tokenizer,
+                                       list(texts[start:start + batch_size]),
+                                       max_seq_length, input_text_type)
+            ids, mask = pad_to_bucket(ids, mask, max_seq_length, pad_id)
+        with sw("device_encode"):
+            ids_t = torch.from_numpy(ids).to(dev)
+            mask_t = torch.from_numpy(mask).to(dev)
+            if output == "code":
+                res = model(ids_t, mask_t, return_code=True).discrete_codes
+                res = res.to(torch.uint8)
+            else:
+                res = model.encode_continuous(ids_t, mask_t)
+            outs.append(res.cpu().numpy())
+        if verbose and (start // batch_size) % 50 == 0:
+            logger.info("encoded %d/%d", min(start + batch_size, n), n)
     return np.concatenate(outs, axis=0)
 
 

@@ -573,7 +573,7 @@ class CudaIVFIndex:
         if serving != "adc":
             raise NotImplementedError(
                 f"serving={serving!r} (decoded residency) is not ported yet "
-                "(ROADMAP.md, Queue 1 item 7)")
+                "(ROADMAP.md, Queue 1 item 8)")
         self.device = resolve_device(device)
         self.host = index
         self.nlist = index.nlist

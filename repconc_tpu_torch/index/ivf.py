@@ -207,8 +207,8 @@ def build_ivf(corpus_embeds, codes: np.ndarray, pq_centroids: np.ndarray,
     """
     if balanced:
         raise NotImplementedError(
-            "build_ivf(balanced=True) needs Sinkhorn (ROADMAP.md, Queue 1 "
-            "item 8)")
+            "build_ivf(balanced=True) (balanced k-means) is not ported yet "
+            "(ROADMAP.md, Queue 1 item 8)")
     dev = resolve_device(device)
     sw = stopwatch if stopwatch is not None else Stopwatch()
     N = corpus_embeds.shape[0]
@@ -329,11 +329,11 @@ def serve_search(index: IVFIndex, query_embeds, topk: int = 1000,
     if mesh is not None:
         raise NotImplementedError(
             "a cell-sharded IVF (mesh=) is not ported yet (ROADMAP.md, Queue 1 "
-            "item 12)")
+            "item 10)")
     if serving not in (None, "adc"):
         raise NotImplementedError(
             f"serving={serving!r} (decoded residency) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 7)")
+            "(ROADMAP.md, Queue 1 item 8)")
     if lut_dtype not in ("bf16", "int8"):
         raise ValueError(f"lut_dtype must be bf16 or int8, not {lut_dtype!r}")
     dev = resolve_device(device)

@@ -12,7 +12,7 @@ def load_adapter_tokenizer(model_dir: str, adapter: str = None):
     if adapter in _PENDING_ADAPTERS:
         raise NotImplementedError(
             f"the {adapter!r} tokenizer adapter is not ported yet "
-            "(ROADMAP.md, Queue 1 item 2)")
+            "(ROADMAP.md, Queue 1 item 3)")
     from transformers import AutoTokenizer
 
     return AutoTokenizer.from_pretrained(model_dir)

@@ -1,11 +1,19 @@
 """The RepCONC model: dense encoder + OPQ rotation + PQ codebook head.
 
-Counterpart of repconc_tpu/models/repconc_model.py:32-106,120-122 as one
+Counterpart of repconc_tpu/models/repconc_model.py:32-122 as one
 nn.Module: `encoder` (DenseEncoder), `rotation` (D, D), applied as
 x @ rotation.T, and `centroids` (M, K, dsub).
+
+The rotation is a parameter that no optimizer updates. In the JAX package
+it sits in the parameter tree, gets a gradient, and that gradient counts
+in the global clip norm before the optimizer zeroes its update
+(train/stage1.py:103-110): stage-1 training here does the same
+(repconc_tpu_torch/train/stage1.py).
 """
 from __future__ import annotations
 
+import os
+import shutil
 from typing import NamedTuple, Optional
 
 import torch
@@ -30,14 +38,16 @@ class RepConcModel(nn.Module):
         self.config = config
         D = config.hidden_size
         self.encoder = DenseEncoder(config.encoder, config.similarity_metric)
-        self.register_buffer("rotation", torch.eye(D))  # frozen, as in JAX
+        self.rotation = nn.Parameter(torch.eye(D))  # never updated
         self.centroids = nn.Parameter(
             torch.zeros(config.MCQ_M, config.MCQ_K, config.dsub))
 
-    def encode_continuous(self, input_ids, attention_mask) -> torch.Tensor:
+    def encode_continuous(self, input_ids, attention_mask,
+                          generator=None) -> torch.Tensor:
         """Dense encode -> rotate -> per-subvector normalize for CENTROID_COS
-        (repconc_model.py:61-79)."""
-        embeds = self.encoder(input_ids, attention_mask)
+        (repconc_model.py:61-79). `generator` switches dropout on and
+        draws its masks (models/transformer.py)."""
+        embeds = self.encoder(input_ids, attention_mask, generator)
         rotated = embeds @ self.rotation.T
         if self.config.similarity_metric == METRIC_CENTROID_COS:
             rotated = codebook.normalize_subvectors(rotated, self.config.MCQ_M)
@@ -47,14 +57,15 @@ class RepConcModel(nn.Module):
                 return_code: bool = False,
                 return_quantized_embedding: bool = False,
                 use_constraint: bool = False) -> QuantizeOutput:
-        """repconc_model.py:82-106. Decoding gathers centroid rows; the
-        gather's gradient reaches the centroids as the one-hot einsum's
-        does."""
+        """repconc_model.py:82-106; the constraint takes the config's
+        sk_epsilon and sk_iters."""
         rotated = self.encode_continuous(input_ids, attention_mask)
         if discrete_codes is None and (return_code or return_quantized_embedding):
-            discrete_codes = codebook.encode(rotated, self.centroids,
-                                             use_constraint=use_constraint)
-        quantized = (codebook.decode_gather(discrete_codes, self.centroids)
+            discrete_codes = codebook.encode(
+                rotated, self.centroids, use_constraint=use_constraint,
+                sk_epsilon=self.config.sk_epsilon,
+                sk_iters=self.config.sk_iters)
+        quantized = (codebook.decode(discrete_codes, self.centroids)
                      if return_quantized_embedding else None)
         return QuantizeOutput(rotated, quantized, discrete_codes)
 
@@ -80,6 +91,25 @@ def init_random_(model: RepConcModel, generator: torch.Generator,
         cent = codebook.normalize_centroids(cent)
     model.centroids.copy_(cent)
     return model
+
+
+TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json", "vocab.txt",
+                   "vocab.json", "merges.txt", "special_tokens_map.json")
+
+
+def save_pretrained(output_dir: str, model: RepConcModel,
+                    tokenizer_dir: Optional[str] = None) -> None:
+    """Write a model dir that both packages load (repconc_model.py:109-117):
+    repconc_config.json, params.msgpack in flax's layout, and the tokenizer
+    files found in `tokenizer_dir`."""
+    from repconc_tpu_torch.models.convert import to_jax_params
+
+    checkpoint.save_model(output_dir, model.config, to_jax_params(model))
+    if tokenizer_dir and os.path.isdir(tokenizer_dir):
+        for name in TOKENIZER_FILES:
+            src = os.path.join(tokenizer_dir, name)
+            if os.path.exists(src):
+                shutil.copy(src, os.path.join(output_dir, name))
 
 
 def from_pretrained(load_dir: str, device="cuda") -> RepConcModel:

@@ -15,6 +15,12 @@ softmax with the reference's -1e9 additive mask (:120) rather than
 scaled_dot_product_attention, so the masking and the fp32 arithmetic are
 the reference's. Submodule names follow the flax parameter tree, which
 keeps models/convert.py a plain renaming.
+
+Dropout is on exactly when a forward is given a `generator`, the
+counterpart of flax's deterministic=False with a dropout key: its masks
+come from that generator and never from the global RNG, so a forward
+recomputed under torch.utils.checkpoint from a generator seeded alike
+draws the same masks. The module's train()/eval() mode plays no part.
 """
 from __future__ import annotations
 
@@ -31,6 +37,16 @@ ACT = {"gelu": lambda x: F.gelu(x, approximate="none"), "relu": F.relu,
        "gelu_new": lambda x: F.gelu(x, approximate="tanh")}
 
 
+def dropout(x: torch.Tensor, p: float, generator) -> torch.Tensor:
+    """Inverted dropout with masks from `generator`; identity when the
+    generator is None (no dropout asked) or p is 0."""
+    if generator is None or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) >= p
+    return x * keep / (1.0 - p)
+
+
 class SelfAttention(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
@@ -40,9 +56,10 @@ class SelfAttention(nn.Module):
         self.key = nn.Linear(H, H)
         self.value = nn.Linear(H, H)
         self.out = nn.Linear(H, H)
-        self.attn_dropout = nn.Dropout(cfg.attention_dropout)
+        self.attn_dropout = cfg.attention_dropout
 
-    def forward(self, hidden: torch.Tensor, attention_bias: torch.Tensor):
+    def forward(self, hidden: torch.Tensor, attention_bias: torch.Tensor,
+                generator=None):
         B, L, H = hidden.shape
 
         def heads(x):  # (B, L, H) -> (B, nh, L, hd)
@@ -52,7 +69,8 @@ class SelfAttention(nn.Module):
                    heads(self.value(hidden)))
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(self.head_dim)
         scores = scores + attention_bias  # (B, 1, 1, L) additive mask
-        probs = self.attn_dropout(torch.softmax(scores, dim=-1))
+        probs = dropout(torch.softmax(scores, dim=-1), self.attn_dropout,
+                        generator)
         ctx = torch.matmul(probs, v).transpose(1, 2).reshape(B, L, H)
         return self.out(ctx)
 
@@ -65,13 +83,15 @@ class TransformerLayer(nn.Module):
         self.mlp_up = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.mlp_down = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
         self.mlp_ln = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-        self.drop = nn.Dropout(cfg.hidden_dropout)
+        self.hidden_dropout = cfg.hidden_dropout
         self.act = ACT[cfg.hidden_act]
 
-    def forward(self, hidden, attention_bias):
-        attn = self.drop(self.attention(hidden, attention_bias))
+    def forward(self, hidden, attention_bias, generator=None):
+        attn = dropout(self.attention(hidden, attention_bias, generator),
+                       self.hidden_dropout, generator)
         hidden = self.attention_ln(hidden + attn)
-        down = self.drop(self.mlp_down(self.act(self.mlp_up(hidden))))
+        down = dropout(self.mlp_down(self.act(self.mlp_up(hidden))),
+                       self.hidden_dropout, generator)
         return self.mlp_ln(hidden + down)
 
 
@@ -83,7 +103,7 @@ class TransformerEncoder(nn.Module):
         if cfg.dtype != "float32":
             raise NotImplementedError(
                 f"activation dtype {cfg.dtype}: the port runs fp32 only "
-                "(ROADMAP.md, Queue 1 item 2)")
+                "(ROADMAP.md, Queue 1 item 3)")
         self.cfg = cfg
         H = cfg.hidden_size
         self.word_embeddings = nn.Embedding(cfg.vocab_size, H)
@@ -91,11 +111,11 @@ class TransformerEncoder(nn.Module):
         self.token_type_embeddings = (nn.Embedding(cfg.type_vocab_size, H)
                                       if cfg.type_vocab_size > 0 else None)
         self.embeddings_ln = nn.LayerNorm(H, eps=cfg.layer_norm_eps)
-        self.embed_dropout = nn.Dropout(cfg.hidden_dropout)
         self.layers = nn.ModuleList(TransformerLayer(cfg)
                                     for _ in range(cfg.num_hidden_layers))
 
-    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor):
+    def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                generator=None):
         cfg = self.cfg
         L = input_ids.shape[1]
         positions = torch.arange(L, device=input_ids.device)[None, :]
@@ -108,11 +128,12 @@ class TransformerEncoder(nn.Module):
         hidden = self.word_embeddings(input_ids) + self.position_embeddings(positions)
         if self.token_type_embeddings is not None:
             hidden = hidden + self.token_type_embeddings(torch.zeros_like(input_ids))
-        hidden = self.embed_dropout(self.embeddings_ln(hidden))
+        hidden = dropout(self.embeddings_ln(hidden), cfg.hidden_dropout,
+                         generator)
         bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0, -1e9)
         bias = bias.to(hidden.dtype)
         for layer in self.layers:
-            hidden = layer(hidden, bias)
+            hidden = layer(hidden, bias, generator)
         return hidden
 
 
@@ -133,9 +154,9 @@ class DenseEncoder(nn.Module):
             self.projection_ln = nn.LayerNorm(cfg.hidden_size,
                                               eps=cfg.layer_norm_eps)
 
-    def forward(self, input_ids, attention_mask):
+    def forward(self, input_ids, attention_mask, generator=None):
         cfg = self.cfg
-        hidden = self.transformer(input_ids, attention_mask)
+        hidden = self.transformer(input_ids, attention_mask, generator)
         if cfg.pooling == "cls":
             embeds = hidden[:, 0]
         else:

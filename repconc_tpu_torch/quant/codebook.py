@@ -1,19 +1,25 @@
-"""PQ codebook operations: distances, argmin encode, gather decode.
+"""PQ codebook operations: distances, encode (argmin / Sinkhorn), decode.
 
-Counterpart of repconc_tpu/quant/codebook.py:23-127,171-200. Subspace
-distances use the ||x||^2 + ||c||^2 - 2 x.c expansion so the hot term is a
-batched matmul. That matmul decides argmins, so it runs in full fp32: the
-entry points switch TF32 off (core/device.py), as the JAX package forces
+Counterpart of repconc_tpu/quant/codebook.py:23-200. Subspace distances use
+the ||x||^2 + ||c||^2 - 2 x.c expansion so the hot term is a batched matmul.
+That matmul decides argmins, so it runs in full fp32: the entry points
+switch TF32 off (core/device.py), as the JAX package forces
 Precision.HIGHEST (:44-51).
 
-Sinkhorn-constrained assignment arrives with the training slice;
-encode(use_constraint=True) raises until then.
+The JAX package decodes with a one-hot einsum (an MXU measure); here decode
+gathers centroid rows. Both give the centroid values exactly, and the
+gather's backward (an index_put with accumulation) is the einsum's VJP: on
+the card it accumulates with atomics, so its sums may differ from the
+CPU's in the last bits.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from repconc_tpu_torch.quant.sinkhorn import sinkhorn_assign
 
 
 def subvector_view(embeds: torch.Tensor, M: int) -> torch.Tensor:
@@ -62,23 +68,44 @@ def _auto_m_chunk(B: int, M: int, K: int) -> int:
 
 @torch.no_grad()
 def encode(embeds: torch.Tensor, centroids: torch.Tensor,
-           use_constraint: bool = False,
-           m_chunk: Optional[int] = None) -> torch.Tensor:
-    """Nearest-centroid codes (B, M) int64 (codebook.py:85-127).
+           use_constraint: bool = False, sk_epsilon: float = 0.003,
+           sk_iters: int = 100, m_chunk: Optional[int] = None) -> torch.Tensor:
+    """Codes (B, M) int64: nearest centroid, or the Sinkhorn-constrained
+    assignment (codebook.py:85-127). No gradient flows: the assignment is
+    discrete.
 
-    m_chunk: subspaces per chunk (None = auto); the result is the same for
-    every chunking. Ties go to the lowest index, as jnp.argmin's do."""
-    if use_constraint:
-        raise NotImplementedError(
-            "Sinkhorn-constrained encode arrives with the training slice "
-            "(ROADMAP.md, Queue 1 item 8)")
+    m_chunk: subspaces per chunk (None = auto). Subspace problems are
+    independent (the centring and both marginals are per subspace), so the
+    result is the same for every chunking. Ties go to the lowest index, as
+    jnp.argmin's and jnp.argmax's do."""
+    embeds, centroids = embeds.detach(), centroids.detach()
     M, K = centroids.shape[0], centroids.shape[1]
     B = embeds.shape[0]
     mc = _auto_m_chunk(B, M, K) if m_chunk is None else round_to_divisor(M, m_chunk)
     x = subvector_view(embeds, M).transpose(0, 1)  # (M, B, dsub)
-    codes = [_sqdist_mbk(x[s:s + mc], centroids[s:s + mc]).argmin(-1)
-             for s in range(0, M, mc)]             # each (mc, B)
-    return torch.cat(codes, 0).T.contiguous()
+    codes = []
+    for s in range(0, M, mc):
+        d = _sqdist_mbk(x[s:s + mc], centroids[s:s + mc])  # (mc, B, K)
+        codes.append(sinkhorn_assign(d, sk_epsilon, sk_iters)
+                     if use_constraint else d.argmin(-1).T)
+    return torch.cat(codes, 1).contiguous()
+
+
+def decode(codes: torch.Tensor, centroids: torch.Tensor,
+           b_chunk: Optional[int] = None) -> torch.Tensor:
+    """Reconstruct (B, D) from codes (B, M), differentiable with respect to
+    the centroids (codebook.py:142-168).
+
+    b_chunk: rows per chunk, each under torch.utils.checkpoint (None: one
+    gather). The JAX package chunks to bound its (B, M, K) one-hot; the
+    gather has none, so the default takes the whole batch at once."""
+    B = codes.shape[0]
+    if b_chunk is None or b_chunk >= B:
+        return decode_gather(codes, centroids)
+    parts = [checkpoint(decode_gather, codes[s:s + b_chunk], centroids,
+                        use_reentrant=False)
+             for s in range(0, B, max(1, b_chunk))]
+    return torch.cat(parts, 0)
 
 
 def decode_gather(codes: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:

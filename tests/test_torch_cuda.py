@@ -439,3 +439,111 @@ def test_ivf_topk_on_card_matches_unfused(cuda, Q, nlist, nprobe, Lpad, M,
         assert ivf_topk.reruns == reruns + 1
     if topk == 1000 and Lpad == 256:
         assert ivf_plan(nprobe, Lpad, topk)[0] is False
+
+
+def _toy_training_model(metric="METRIC_IP"):
+    """A seeded toy RepCONC model (2 layers, hidden 32, M=4, K=16, dropout
+    0) on the CPU."""
+    from repconc_tpu_torch.core.config import EncoderConfig, RepConcConfig
+    from repconc_tpu_torch.models.repconc_model import RepConcModel, init_random_
+
+    enc = EncoderConfig(vocab_size=64, hidden_size=32, num_hidden_layers=2,
+                        num_attention_heads=4, intermediate_size=64,
+                        max_position_embeddings=64, pooling="mean",
+                        hidden_dropout=0.0, attention_dropout=0.0)
+    config = RepConcConfig(encoder=enc, MCQ_M=4, MCQ_K=16,
+                           similarity_metric=metric, sk_epsilon=0.05,
+                           sk_iters=20)
+    return init_random_(RepConcModel(config), torch.Generator().manual_seed(0))
+
+
+def _toy_training_batch(rng, B=8, n_neg=2, Lq=8, Ld=12):
+    ids = lambda n, L: torch.as_tensor(rng.integers(4, 64, size=(n, L)))
+    pos = torch.arange(B, dtype=torch.int32)
+    positives = torch.full((B, 4), -1, dtype=torch.int32)
+    positives[:, 0] = pos
+    return {"query_input_ids": ids(B, Lq),
+            "query_attention_mask": torch.ones((B, Lq), dtype=torch.int64),
+            "pos_input_ids": ids(B, Ld),
+            "pos_attention_mask": torch.ones((B, Ld), dtype=torch.int64),
+            "neg_input_ids": ids(B * n_neg, Ld),
+            "neg_attention_mask": torch.ones((B * n_neg, Ld), dtype=torch.int64),
+            "qids": pos.clone(), "pos_docids": pos, "query_positives": positives,
+            "neg_docids": torch.as_tensor(
+                rng.integers(B, 100, size=(B * n_neg,)).astype(np.int32))}
+
+
+@pytest.mark.parametrize("metric", ["METRIC_IP", "METRIC_CENTROID_COS"])
+def test_train_step_on_card_matches_cpu(cuda, metric):
+    """One stage-1 step (constraint on, TF32 off) on the card and on the
+    CPU from the same weights and batch: the loss within 1e-5 relative,
+    each gradient within 1e-4 of its largest |g| (the centroids' gradient
+    accumulates with atomics on the card), the parameters after the step
+    within 1e-6, the rotation unchanged. The attention key biases, whose
+    gradient is zero in exact arithmetic (tests/test_torch_stage1.py):
+    gradients within 1e-6 of the largest |g| of any array. They, and the
+    elements whose gradient is within the gradient bar of zero, take
+    Adam's first step lr * g / (|g| + eps) with either sign: parameters
+    within 2 lr there."""
+    import copy
+
+    from repconc_tpu_torch.core.device import resolve_device
+    from repconc_tpu_torch.train import stage1
+
+    dev = resolve_device("cuda")
+    hp = stage1.Stage1Hparams(total_steps=10, mse_loss_weight=0.1)
+    cpu = _toy_training_model(metric)
+    card = copy.deepcopy(cpu).to(dev)
+    batch = _toy_training_batch(np.random.default_rng(1))
+    out = {}
+    for name, model, device in (("cpu", cpu, "cpu"), ("card", card, dev)):
+        tx = stage1.make_optimizer(hp, model)
+        metrics = stage1.make_train_step(model, hp, tx)(
+            {k: v.to(device) for k, v in batch.items()})
+        out[name] = ({k: float(v) for k, v in metrics.items()},
+                     {n: p.grad.cpu() for n, p in model.named_parameters()})
+    (m_cpu, g_cpu), (m_card, g_card) = out["cpu"], out["card"]
+    for k in m_cpu:
+        assert m_card[k] == pytest.approx(m_cpu[k], rel=1e-5, abs=1e-7), k
+    top = max(float(g.abs().max()) for g in g_cpu.values())
+    for n, g in g_cpu.items():
+        bar = (1e-6 * top if n.endswith("key.bias")
+               else 1e-4 * max(float(g.abs().max()), 1e-12))
+        assert float((g_card[n] - g).abs().max()) <= bar, n
+    card_state = card.state_dict()
+    for n, a in cpu.state_dict().items():
+        d = (card_state[n].cpu() - a).abs()
+        if n == "rotation":
+            assert float(d.max()) == 0.0
+            continue
+        g = g_cpu[n].abs()
+        free = (torch.ones_like(g, dtype=torch.bool) if n.endswith("key.bias")
+                else g <= 1e-4 * g.max())
+        lr = hp.centroid_learning_rate if n == "centroids" else hp.learning_rate
+        if (~free).any():
+            assert float(d[~free].max()) <= 1e-6, n
+        if free.any():
+            assert float(d[free].max()) <= 2 * lr, n
+
+
+def test_constrained_encode_on_card_matches_cpu(cuda):
+    """Sinkhorn-constrained codes at the M=12 geometry (B=128, K=256,
+    eps=0.003, 100 iterations) on the card and on the CPU: equal except
+    where the sample's two best log Q (CPU) are within 1e-3. With fewer
+    samples than centroids (B < K) the constraint splits some samples'
+    mass between centroids of near-equal share: those are such ties."""
+    from repconc_tpu_torch.core.device import resolve_device
+    from repconc_tpu_torch.quant import codebook, sinkhorn
+
+    dev = resolve_device("cuda")
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((128, 768), generator=g)
+    c = torch.randn((12, 256, 64), generator=g)
+    want = codebook.encode(x, c, use_constraint=True)
+    got = codebook.encode(x.to(dev), c.to(dev), use_constraint=True).cpu()
+    logq = sinkhorn.sinkhorn_log(
+        -sinkhorn.center_distances(codebook.pairwise_sqdist(x, c)), 0.003, 100)
+    top2 = logq.topk(2, dim=-1).values
+    tied = (top2[..., 0] - top2[..., 1] < 1e-3).T
+    assert bool((got[~tied] == want[~tied]).all())
+    assert float(tied.float().mean()) < 0.25

@@ -1,5 +1,5 @@
 """Guards of what the port may load, so that it starts where only torch,
-numpy, nvcc and the standard library are installed (no jax, flax,
+numpy, nvcc and the standard library are installed (no jax, flax, optax,
 transformers, msgpack or safetensors), and builds its kernels with plain
 nvcc rather than torch.utils.cpp_extension."""
 import ast
@@ -17,8 +17,16 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "repconc_tpu_torch"
 SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-NEVER = ("jax", "flax", "repconc_tpu")            # nowhere, not even lazily
-LAZY_ONLY = ("transformers", "msgpack", "safetensors")  # inside functions only
+NEVER = ("jax", "flax", "optax", "orbax", "msgpack",  # nowhere, not
+         "repconc_tpu")                                 # even lazily
+LAZY_ONLY = ("transformers", "safetensors")  # inside functions only
+# the modules of stage-1 training, each guarded by the tests below
+TRAINING_MODULES = ["repconc_tpu_torch.train", "repconc_tpu_torch.train.data",
+                    "repconc_tpu_torch.train.stage1",
+                    "repconc_tpu_torch.quant.sinkhorn",
+                    "repconc_tpu_torch.quant.losses",
+                    "repconc_tpu_torch.core.logging_utils",
+                    "repconc_tpu_torch.cli.run_train_conc"]
 
 
 def _module_names():
@@ -77,6 +85,22 @@ def test_importing_everything_loads_no_forbidden_module():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("name", TRAINING_MODULES)
+def test_training_module_is_guarded(name):
+    """Each training module is among those the import guards walk."""
+    assert name in _module_names()
+
+
+def test_train_package_imports_nothing_eagerly():
+    code = ("import sys, repconc_tpu_torch.train\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] == 'torch'"
+            " or m.startswith('repconc_tpu_torch.')))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "['repconc_tpu_torch.train']"
 
 
 def _run_smoke(cwd):
