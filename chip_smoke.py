@@ -86,7 +86,25 @@ shows where it stopped:
                 training queries/s
                 and docs/s, the step split into encoder, Sinkhorn, decode +
                 loss and optimizer (CUDA events), peak memory, validation s
-  9 kernels     one JSON line per the port's kernel table
+  9 train_stage2
+                stage-2 (JPQ) training at full width through
+                train/stage2.py::train, from a model dir of train_stage1's
+                final weights: 8,841,823 random M=12 codes on the card, 2,048
+                queries of 32 tokens, the stage-9 recipe's values (batch 128,
+                200 dynamic negatives, lr 5e-6, centroid lr 2e-4, dropout
+                on), 10 steps, saves every 5, one validation (256 queries,
+                top-10); every step's hard-negative search is K1's two
+                passes (adc_group_max and adc_filter at least once a step,
+                the unfused K1 never); finite losses, centroids moved, one
+                step's ids against a plain top-200 over the same bf16 LUT,
+                planted positives masked, final/params.msgpack read back
+                equal, a second train call resumes and stops, an 8-query
+                step card == CPU at 100,003 codes; the median step time,
+                queries/s, the step split (encoder, search: LUT, pass 1,
+                tau, pass 2, sort; decode + loss; optimizer), peak memory,
+                validation s, K1's passes at Q=128, k=200 beside their
+                bounds
+  10 kernels    one JSON line per the port's kernel table
 
 The last lines are the kernels line, the card's `nvidia-smi` name and power
 limit, and {"ok": true, "device": {...}}. Any failure raises and exits
@@ -1569,6 +1587,57 @@ def step_split_ms(model, hp, tx, batch, seeds, reps: int = 3):
     return {k: statistics.median(v) for k, v in parts.items()}
 
 
+def step_gaps(cpu, card, lr: float, centroid_lr: float):
+    """One training step on the card against the same step on the CPU,
+    each given as (metrics, gradients, parameters after the step) by name.
+    The attention key biases' gradient is zero in exact arithmetic
+    (softmax is shift-invariant along a row), and a few other elements'
+    gradients lie within the gradients' agreement of zero: Adam's first
+    step is lr * g / (|g| + eps), so their steps may differ by up to 2 lr.
+    Returns the metrics' largest relative gap, each gradient array's gap
+    over its own largest |g| (the key biases' over the largest |g| of any
+    array), the other parameters' largest gap, and the near-zero-gradient
+    elements' and key biases' largest gap in lr and count above 1e-6."""
+    import torch
+
+    (m_cpu, g_cpu, p_cpu), (m_card, g_card, p_card) = cpu, card
+    key = [n for n in g_cpu if n.endswith("key.bias")]
+    top = max(float(g.abs().max()) for g in g_cpu.values())
+    out = {
+        "metrics_rel": max(abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]),
+                                                            1e-12)
+                           for k in m_cpu),
+        "grad_rel": max(float((g_card[n] - g).abs().max())
+                        / max(float(g.abs().max()), 1e-12)
+                        for n, g in g_cpu.items() if n not in key),
+        "key_bias_grad_rel": max(float((g_card[n] - g_cpu[n]).abs().max())
+                                 for n in key) / top,
+        "param_abs": 0.0, "near_zero_grad_param_lr": 0.0,
+        "near_zero_grad_moved": 0}
+    for n, g in g_cpu.items():
+        d = (p_card[n] - p_cpu[n]).abs()
+        free = (torch.ones_like(g, dtype=torch.bool) if n in key else
+                g.abs() <= 1e-4 * g.abs().max())
+        step_lr = centroid_lr if n == "centroids" else lr
+        if d[~free].numel():
+            out["param_abs"] = max(out["param_abs"], float(d[~free].max()))
+        if d[free].numel():
+            out["near_zero_grad_param_lr"] = max(
+                out["near_zero_grad_param_lr"], float(d[free].max()) / step_lr)
+        out["near_zero_grad_moved"] += int((d[free] > 1e-6).sum())
+    return out
+
+
+def check_step_gaps(gaps, what: str) -> None:
+    """The bars of a card-vs-CPU step: metrics 1e-5 relative, gradients
+    1e-4 of each array's max (key biases 1e-6 of the largest), parameters
+    1e-6, near-zero-gradient elements and key biases 2 lr."""
+    check(gaps["metrics_rel"] <= 1e-5 and gaps["grad_rel"] <= 1e-4
+          and gaps["key_bias_grad_rel"] <= 1e-6 and gaps["param_abs"] <= 1e-6
+          and gaps["near_zero_grad_param_lr"] <= 2.0,
+          f"{what} card == CPU ({gaps})")
+
+
 def phase_train_stage1(dev):
     """Stage-1 training at full width through train/stage1.py::train (the
     card has no `transformers`, so not through the CLI, whose tokenizer
@@ -1682,42 +1751,9 @@ def phase_train_stage1(dev):
                 {k: float(v) for k, v in metrics.items()},
                 {n: p.grad.cpu() for n, p in m.named_parameters()},
                 {n: v.cpu() for n, v in m.state_dict().items()})
-        (m_cpu, g_cpu, p_cpu), (m_card, g_card, p_card) = (
-            step_out["cpu"], step_out["card"])
-        loss_gap = max(abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12)
-                       for k in m_cpu)
-        # The attention key biases' gradient is zero in exact arithmetic
-        # (softmax is shift-invariant along a row), and elsewhere a few
-        # elements' gradients lie within the gradients' agreement of zero:
-        # Adam's first step is lr * g / (|g| + eps), so their steps may
-        # differ by up to 2 lr. Every other parameter within 1e-6.
-        key = [n for n in g_cpu if n.endswith("key.bias")]
-        top = max(float(g.abs().max()) for g in g_cpu.values())
-        grad_gap = max(float((g_card[n] - g).abs().max())
-                       / max(float(g.abs().max()), 1e-12)
-                       for n, g in g_cpu.items() if n not in key)
-        key_grad_gap = max(float((g_card[n] - g_cpu[n]).abs().max())
-                           for n in key) / top
-        param_gap, free_gap, free_moved = 0.0, 0.0, 0
-        for n, g in g_cpu.items():
-            d = (p_card[n] - p_cpu[n]).abs()
-            free = (torch.ones_like(g, dtype=torch.bool) if n in key else
-                    g.abs() <= 1e-4 * g.abs().max())
-            lr = hp.centroid_learning_rate if n == "centroids" else hp.learning_rate
-            d_fixed, d_free = d[~free], d[free]
-            if d_fixed.numel():
-                param_gap = max(param_gap, float(d_fixed.max()))
-            if d_free.numel():
-                free_gap = max(free_gap, float(d_free.max()) / lr)
-            free_moved += int((d[free] > 1e-6).sum())
-        check(loss_gap <= 1e-5 and grad_gap <= 1e-4 and key_grad_gap <= 1e-6
-              and param_gap <= 1e-6 and free_gap <= 2.0,
-              f"8-query step card == CPU (metrics {loss_gap:.2e} rel, "
-              f"gradients {grad_gap:.2e} of each max, key-bias gradients "
-              f"{key_grad_gap:.2e} of the largest, parameters "
-              f"{param_gap:.2e}; those with a gradient within 1e-4 of its "
-              f"array's max of zero, and the key biases, {free_gap:.3f} lr, "
-              f"{free_moved} above 1e-6)")
+        gaps = step_gaps(step_out["cpu"], step_out["card"], hp.learning_rate,
+                         hp.centroid_learning_rate)
+        check_step_gaps(gaps, "8-query step")
         del step_out
 
         # timings on the trained model, the full batch, dropout on
@@ -1753,11 +1789,7 @@ def phase_train_stage1(dev):
          validation_mrr_at_10=eval_m["MRR@10"],
          validation_docs=len(valid[0]), validation_queries=len(valid[1]),
          codes_tied_share=float(tied.float().mean()),
-         step_card_vs_cpu={"metrics_rel": loss_gap, "grad_rel": grad_gap,
-                           "key_bias_grad_rel": key_grad_gap,
-                           "param_abs": param_gap,
-                           "near_zero_grad_param_lr": free_gap,
-                           "near_zero_grad_moved": free_moved})
+         step_card_vs_cpu=gaps)
     print(f"train_stage1 step_ms {step_ms:.3f} queries_per_s "
           f"{batch_size / step_ms * 1e3:.1f} docs_per_s "
           f"{docs / step_ms * 1e3:.1f}", flush=True)
@@ -1766,7 +1798,340 @@ def phase_train_stage1(dev):
     print(f"train_stage1 peak_memory_gb {peak_gb:.3f} validation_s "
           f"{valid_s:.3f} sinkhorn_ms {sinkhorn_ms:.3f}", flush=True)
     print(card_line(), flush=True)
-    return dict(launches=launches)
+    return dict(launches=launches, model=model)
+
+
+def write_query_files(root: str, n_queries: int, n_docs: int, words: int,
+                      seed: int):
+    """The TSVs QueryDataset reads: n_queries queries of `words` random
+    words, each judged relevant to 1-3 random docs among the corpus
+    offsets 0..n_docs-1 (whose ids are the offsets as strings)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    paths = {k: os.path.join(root, f"{k}.tsv") for k in ("queries", "qrels")}
+    with open(paths["queries"], "w") as f:
+        f.writelines(f"q{j}\t" + " ".join(
+            f"w{w}" for w in rng.integers(0, 20_000, words)) + "\n"
+            for j in range(n_queries))
+    with open(paths["qrels"], "w") as f:
+        f.writelines(f"q{j} 0 {d} 1\n" for j in range(n_queries)
+                     for d in rng.choice(n_docs, int(rng.integers(1, 4)),
+                                         replace=False))
+    return paths
+
+
+def stage2_split_ms(model, hp, tx, batch, codes, n_docs: int, seeds,
+                    reps: int = 3):
+    """One stage-2 step cut into its parts, each timed with CUDA events
+    (median of `reps` steps): the query encoder's forward and backward, the
+    in-step search (the LUT, pass 1, the threshold tau, pass 2 with its
+    count read and any rerun, the final sort), decode + loss (forward and
+    backward) and the optimizer. The parts are train/stage2.py::loss_fn's
+    and index/cuda_adc.py::adc_topk's, with the encoder's backward run from
+    the gradient of its output."""
+    import torch
+    from repconc_tpu_torch.index.adc import build_lut
+    from repconc_tpu_torch.index.cuda_adc import (adc_filter, adc_group_max,
+                                                  search_plan, select_topk)
+    from repconc_tpu_torch.train import stage1, stage2
+
+    k = hp.dynamic_topk_negative
+    G, cap = search_plan(n_docs, k)
+    names = ("encoder_fwd", "lut", "pass1", "tau", "pass2", "sort",
+             "decode_loss", "encoder_bwd", "optimizer")
+    parts = {n: [] for n in names}
+    parts["step"], candidates = [], []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(10)]
+        tx.zero_grad()
+        ev[0].record()
+        q = stage1.encode_chunked(model, batch["query_input_ids"],
+                                  batch["query_attention_mask"], -1, seeds)
+        ev[1].record()
+        with torch.no_grad():
+            lut = build_lut(q.detach(), model.centroids.detach()).to(
+                torch.bfloat16).contiguous()
+            ev[2].record()
+            gmax = adc_group_max(lut, codes, n_docs, G)
+            ev[3].record()
+            tau = torch.topk(gmax, k, dim=1).values[:, -1].contiguous()
+            ev[4].record()
+            cand_s, cand_i, count = adc_filter(lut, codes, n_docs, tau, cap,
+                                               gmax)
+            most = int(count.max())
+            if most > cap:
+                cand_s, cand_i, count = adc_filter(lut, codes, n_docs, tau,
+                                                   most, gmax)
+            ev[5].record()
+            neg_pids = select_topk(cand_s, cand_i, k)[1]
+        ev[6].record()
+        q_leaf = q.detach().requires_grad_()
+        loss, _ = stage2.ranking_loss(q_leaf, model.centroids, codes,
+                                      neg_pids, batch, hp.temperature)
+        loss.backward()
+        ev[7].record()
+        torch.autograd.backward([q], [q_leaf.grad])
+        ev[8].record()
+        tx.step()
+        ev[9].record()
+        ev[9].synchronize()
+        for j, n in enumerate(names):
+            parts[n].append(ev[j].elapsed_time(ev[j + 1]))
+        parts["step"].append(ev[0].elapsed_time(ev[9]))
+        candidates.append(float(count.float().mean()))
+    out = {n: statistics.median(v) for n, v in parts.items()}
+    out["encoder_fwd_bwd"] = out.pop("encoder_fwd") + out.pop("encoder_bwd")
+    out["search"] = sum(out[n] for n in ("lut", "pass1", "tau", "pass2",
+                                         "sort"))
+    return out, statistics.median(candidates)
+
+
+def phase_train_stage2(dev, stage1_model):
+    """Stage-2 (JPQ) training at full width through train/stage2.py::train
+    (not the CLI: the card has no `transformers`): the M=12 config from
+    the weights train_stage1 ended with, saved as a model dir and read back
+    with from_pretrained; 8,841,823 random M=12 codes on the card; 2,048
+    queries of 32 tokens with 1-3 judged docs each; the stage-9 recipe's
+    values (recipes/run_pipeline.sh:185-202: batch 128, 200 dynamic
+    negatives, lr 5e-6, centroid lr 2e-4, temperature 1, clip 1, dropout
+    on); 10 steps, logging and saves every 5, one validation at step 10
+    (256 queries over the same codes, top-10). Every step's hard-negative
+    search is K1's two passes."""
+    import numpy as np
+    import torch
+    from repconc_tpu_torch.core.checkpoint import load_params, params_to_bytes
+    from repconc_tpu_torch.core.config import METRIC_CENTROID_COS
+    from repconc_tpu_torch.index.adc import (build_lut, plain_topk,
+                                             score_codes_reference)
+    from repconc_tpu_torch.index.cuda_adc import (adc_filter, adc_group_max,
+                                                  adc_topk, search_plan)
+    from repconc_tpu_torch.models import repconc_model
+    from repconc_tpu_torch.models.convert import to_jax_params
+    from repconc_tpu_torch.train import stage1, stage2
+    from repconc_tpu_torch.train.data import (QueryCollator, QueryDataset,
+                                              batch_iterator)
+
+    t_phase = time.perf_counter()
+    N, M, K, steps = MSMARCO_PASSAGES, 12, 256, 10
+    batch_size, max_query_len = 128, 32
+    hp = stage2.Stage2Hparams(total_steps=steps, logging_steps=5,
+                              eval_steps=steps, save_steps=5)
+    k = hp.dynamic_topk_negative
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    codes = torch.randint(0, K, (N, M), generator=g, device=dev,
+                          dtype=torch.uint8)
+    corpus_ids = np.arange(N, dtype=np.int64)
+    tok = HashTokenizer(stage1_model.config.encoder.vocab_size)
+    valid_rng = np.random.default_rng(SEED + 6)
+    valid_q = {f"v{j}": " ".join(f"w{w}" for w in valid_rng.integers(
+        0, 20_000, 8)) for j in range(256)}
+    valid = (corpus_ids, valid_q,
+             {q: {str(int(valid_rng.integers(N))): 1} for q in valid_q})
+    with tempfile.TemporaryDirectory() as tmp:
+        init_dir = os.path.join(tmp, "stage1_final")
+        repconc_model.save_pretrained(init_dir, stage1_model)
+        del stage1_model
+        torch.cuda.empty_cache()
+        model = repconc_model.from_pretrained(init_dir, device=dev)
+        config = model.config
+        cent0 = model.centroids.detach().clone()
+        t0 = time.perf_counter()
+        paths = write_query_files(tmp, 2048, N, max_query_len - 2, SEED + 7)
+        dataset = QueryDataset(paths["qrels"], paths["queries"], corpus_ids)
+        collator = QueryCollator(tok, max_query_len)
+        dataset_s = time.perf_counter() - t0
+
+        def batches(size=batch_size, seed=SEED):
+            return batch_iterator(dataset, collator, size, seed=seed)
+
+        out_dir = os.path.join(tmp, "out")
+        logs = []
+        log = lambda d: logs.append((time.perf_counter(), d))  # noqa: E731
+        reset_launches()
+        t0 = time.perf_counter()
+        out = stage2.train(model, codes, batches(), hp, out_dir,
+                           tokenizer=tok, valid_set=valid, log_fn=log,
+                           device=dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = launch_counts()
+        check(out["step"] == steps and len(out["history"]) == 2,
+              f"trained {out['step']} steps, logged {len(out['history'])}")
+        check(all(np.isfinite(h[key]) for h in out["history"]
+                  for key in ("loss", "grad_norm")), "finite losses")
+        check(not torch.equal(model.centroids.detach(), cent0),
+              "the centroids changed")
+        if config.similarity_metric == METRIC_CENTROID_COS:
+            norms = model.centroids.detach().norm(dim=-1)
+            check(bool(((norms - 1).abs() < 1e-5).all()),
+                  "unit-norm centroids")
+        check(launches["adc_group_max"] >= steps + 1
+              and launches["adc_filter"] >= steps + 1
+              and launches["adc_scan"] == 0,
+              f"every step and the validation ran both passes of K1, and "
+              f"the unfused K1 none ({launches})")
+        evals = [(t, m) for t, m in logs if "eval_MRR@10" in m]
+        check(len(evals) == 1 and 0.0 <= evals[0][1]["eval_MRR@10"] <= 1.0,
+              "one validation with MRR@10 in [0, 1]")
+        # the validation ran between the step-10 log and its own log
+        step10 = [t for t, m in logs if m.get("step") == steps
+                  and "loss" in m]
+        valid_s = evals[0][0] - step10[0]
+        saved = load_params(os.path.join(out_dir, "final"))
+        check(params_to_bytes(saved) == params_to_bytes(to_jax_params(model)),
+              "final/params.msgpack reads back equal to the model")
+        again = stage2.train(repconc_model.from_pretrained(init_dir, device=dev),
+                             codes, batches(), hp, out_dir, tokenizer=tok,
+                             valid_set=valid, device=dev)
+        check(again["step"] == steps and again["history"] == []
+              and all(torch.equal(a, b) for a, b in zip(
+                  again["model"].state_dict().values(),
+                  model.state_dict().values())),
+              "a second train call resumes at step 10 and stops at once")
+        del again
+        torch.cuda.empty_cache()
+
+        # one step's search and mask on the trained model (no dropout, so
+        # two calls search alike): the ids against a plain top-200 over the
+        # same bf16 LUT; positives planted among the ids are masked
+        b = {key: torch.as_tensor(v).to(dev) for key, v in
+             next(batches(seed=SEED + 8)).items()}
+        _, _, aux = stage2.loss_fn(model, hp, b, codes, N, True)
+        ids = aux["neg_pids"]
+        b["query_positives"][:, 1] = ids[:, 5].int()
+        b["query_positives"][::2, 2] = ids[::2, 150].int()
+        loss, _, aux = stage2.loss_fn(model, hp, b, codes, N, True)
+        check(torch.equal(aux["neg_pids"], ids) and bool(torch.isfinite(loss)),
+              "the search repeats on the same inputs; finite loss")
+        lut = build_lut(aux["q_embeds"], model.centroids.detach()).to(
+            torch.bfloat16).contiguous()
+        s, i = adc_topk(lut, codes, N, k)
+        s_ref, i_ref = plain_topk(lut, codes, N, k, chunk_size=1 << 20)
+        check(torch.equal(i, ids) and same_topk(s, i, s_ref, i_ref),
+              "the step's ids equal a plain top-200 (score_codes_reference "
+              "by chunk, torch.topk): scores bit-equal, ids but tie order")
+        overlap = sum(len(set(r) & {p for p in pos if p >= 0}) for r, pos in
+                      zip(ids.tolist(), b["query_positives"].tolist()))
+        masked = int(aux["masked"].sum())
+        check(masked == overlap and overlap >= batch_size,
+              f"masked {masked} retrieved positives, the overlap is "
+              f"{overlap}")
+
+        # K1's passes at this shape, with their bounds
+        G, cap = search_plan(N, k)
+        gmax = adc_group_max(lut, codes, N, G)
+        tau = torch.topk(gmax, k, dim=1).values[:, -1].contiguous()
+        count = adc_filter(lut, codes, N, tau, cap, gmax)[2]
+        pass_ms = {
+            "pass1": time_ms(lambda: adc_group_max(lut, codes, N, G)),
+            "pass2": time_ms(lambda: adc_filter(lut, codes, N, tau, cap,
+                                                gmax)),
+            "search": time_ms(lambda: adc_topk(lut, codes, N, k)),
+        }
+        bounds = pass_bounds(gmax, tau, count, N, M, K, k)
+        del gmax, s, i, s_ref, i_ref
+
+        # an 8-query step, card (the kernel) against CPU (the passes' plain
+        # versions) at N = 100,003, no dropout
+        n_small = 100_003
+        small = next(batches(8, SEED + 9))
+        small["pos_docids"] %= n_small  # judged docs among the first n_small
+        pos = small["query_positives"]
+        small["query_positives"] = np.where(pos >= 0, pos % n_small, pos)
+        step_out = {}
+        for where, d, use in (("cpu", "cpu", True), ("card", dev, None)):
+            m = repconc_model.from_pretrained(init_dir, device=d)
+            cc = codes[:n_small].to(d)
+            hp_small = stage2.Stage2Hparams(**dict(hp.__dict__,
+                                                   use_pallas_search=use))
+            bb = {key: torch.as_tensor(v).to(d) for key, v in small.items()}
+            _, _, a = stage2.loss_fn(m, hp_small, bb, cc, n_small,
+                                     stage2.takes_kernel(use, d))
+            tx = stage1.make_optimizer(hp_small.as_stage1(), m)
+            metrics = stage2.make_train_step(m, hp_small, tx, cc)(bb)
+            step_out[where] = (
+                {key: float(v) for key, v in metrics.items()},
+                {n: p.grad.cpu() for n, p in m.named_parameters()},
+                {n: v.cpu() for n, v in m.state_dict().items()},
+                a["neg_pids"].cpu(), a["q_embeds"].cpu())
+            del m, tx, cc
+        (*_, i_cpu, q_cpu), (*_, i_card, q_card) = (step_out["cpu"],
+                                                    step_out["card"])
+        lut_cpu = build_lut(q_cpu, cent0.cpu()).to(torch.bfloat16)
+        lut_card = build_lut(q_card, cent0.cpu()).to(torch.bfloat16)
+        scores = score_codes_reference(lut_cpu, codes[:n_small].cpu())
+        kth = torch.topk(scores, k, dim=1).values[:, -1:]
+        near = M * float((lut_card.float() - lut_cpu.float()).abs().max())
+        differ = torch.zeros_like(scores, dtype=torch.bool)
+        differ.scatter_(1, i_cpu, True)
+        differ ^= torch.zeros_like(differ).scatter_(1, i_card, True)
+        ids_differ = int(differ.sum()) // 2
+        check(bool(((scores - kth).abs()[differ] <= near + 1e-6).all()),
+              f"8-query step: ids card == CPU except near-ties "
+              f"({ids_differ} differ; bar {near:.3g})")
+        gaps = step_gaps(step_out["cpu"][:3], step_out["card"][:3],
+                         hp.learning_rate, hp.centroid_learning_rate)
+        check_step_gaps(gaps, "8-query step")
+        del step_out, scores, differ
+
+        # timings on the trained model, dropout on: whole steps (host
+        # clock around each, synchronised), the split, peak memory
+        seeds = torch.Generator().manual_seed(SEED)
+        tx = stage1.make_optimizer(hp.as_stage1(), model)
+        step_fn = stage2.make_train_step(model, hp, tx, codes, N)
+        timed = [{key: torch.as_tensor(v).to(dev) for key, v in bt.items()}
+                 for _, bt in zip(range(steps), batches(seed=SEED + 10))]
+        reruns = adc_topk.reruns
+        step_s = []
+        for bt in timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step_fn(bt, seeds)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        step_ms = statistics.median(step_s[1:]) * 1e3
+        timed_reruns = adc_topk.reruns - reruns
+        torch.cuda.reset_peak_memory_stats()
+        step_fn(timed[0], seeds)
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        split, candidates = stage2_split_ms(model, hp, tx, timed[0], codes, N,
+                                            seeds)
+        del timed, tx, step_fn
+    phase_s = time.perf_counter() - t_phase
+    emit("train_stage2", steps=out["step"], launches=launches,
+         train_call_s=train_s, dataset_s=dataset_s, history=out["history"],
+         eval=evals[0][1], step_ms=step_ms,
+         step_ms_all=[t * 1e3 for t in step_s],
+         queries_per_s=batch_size / step_ms * 1e3, step_split_ms=split,
+         search_candidates_mean=candidates, search_reruns=timed_reruns,
+         peak_memory_gb=peak_gb, validation_s=valid_s,
+         validation_queries=len(valid_q), k1_at_step_shape={
+             "Q": batch_size, "N": N, "M": M, "topk": k, "groups": G,
+             "cap": cap, "ms": pass_ms,
+             "bound_ms": {p: bounds[p] for p in ("pass1", "pass2", "search")},
+             "candidates_mean": float(count.float().mean())},
+         masked_positives=masked,
+         step_card_vs_cpu={"n_docs": n_small, "ids_differ": ids_differ,
+                           "near_tie_bar": near, **gaps},
+         phase_s=phase_s)
+    print(f"train_stage2 step_ms {step_ms:.3f} queries_per_s "
+          f"{batch_size / step_ms * 1e3:.1f} (median of steps 2-{steps})",
+          flush=True)
+    print("train_stage2 split_ms " + " ".join(
+        f"{key} {v:.3f}" for key, v in split.items())
+        + f" candidates {candidates:.1f} reruns {timed_reruns}", flush=True)
+    print(f"train_stage2 peak_memory_gb {peak_gb:.3f} validation_s "
+          f"{valid_s:.3f}", flush=True)
+    print(f"train_stage2 k1 Q={batch_size} k={k} N={N} " + " ".join(
+        f"{p}_ms {pass_ms[p]:.4f} bound_ms {bounds[p][0]:.4f} ({bounds[p][1]})"
+        for p in ("pass1", "pass2", "search")), flush=True)
+    print(card_line(), flush=True)
+    del model, codes
+    torch.cuda.empty_cache()
+    return dict(launches=launches, pass_ms=pass_ms, bounds=bounds,
+                shape={"Q": batch_size, "N": N, "M": M, "K": K, "topk": k})
 
 
 def build_all():
@@ -1866,6 +2231,7 @@ def main() -> int:
     main_path = phase_main_path(dev)
     ivf_runs = phase_ivf_main_path(dev, main_path)
     train_run = phase_train_stage1(dev)
+    jpq_run = phase_train_stage2(dev, train_run.pop("model"))
 
     # launches on the paths: both passes of the K1 top-k on the flat main
     # path (phase 4); both passes of the IVF top-k on the IVF path, with
@@ -1875,7 +2241,8 @@ def main() -> int:
     # in the JAX package either. Their launches there must stay 0; k1_check,
     # k2_check, k3_check and k4_check hold them against their plain versions
     on_paths = [main_path["launches"], *ivf_runs.values(),
-                *(r["launches"] for r in ivf_scale.values())]
+                *(r["launches"] for r in ivf_scale.values()),
+                jpq_run["launches"]]
     launches = {
         "adc_scan": (sum(r["adc_scan"] for r in on_paths), None),
         "adc_group_max": (main_path["launches"]["adc_group_max"],
@@ -1922,6 +2289,8 @@ def main() -> int:
                           for name, r in ivf_runs.items()},
         "train_stage1": {k: train_run["launches"][k]
                          for k in ("adc_group_max", "adc_filter")},
+        "train_stage2": {k: jpq_run["launches"][k]
+                         for k in ("adc_group_max", "adc_filter")},
     }
     check(all(v > 0 for v in elsewhere["full_scan"].values())
           and all(v > 0 for r in elsewhere["ivf_scale"].values()
@@ -1956,6 +2325,11 @@ def main() -> int:
         if name in ("adc_group_max", "adc_filter"):
             entry["launches_elsewhere"] = {
                 k: v for k, v in elsewhere.items()}
+            p = "pass1" if name == "adc_group_max" else "pass2"
+            entry["train_stage2_ms"] = jpq_run["pass_ms"][p]
+            entry["train_stage2_bound_ms"] = jpq_run["bounds"][p][0]
+            entry["train_stage2_bound_by"] = jpq_run["bounds"][p][1]
+            entry["train_stage2_shape"] = jpq_run["shape"]
         for k in ("ivf_scale_ms", "ivf_scale_bound_ms", "ivf_scale_bound_by"):
             if k in t:
                 entry[k] = t[k]

@@ -14,8 +14,10 @@ Layer map (the same names as repconc_tpu, where a module exists yet):
            decode, the training losses
   index/   flat top-k helpers, ADC search (K1), k-means and IVF-PQ (K2, K3)
   eval/    batch encoding, TREC run IO, trec_eval-parity metrics, pipeline
-  train/   the training data pipeline and stage-1 RepCONC training
-  cli/     run_repconc_eval, run_train_conc
+  train/   the training data pipeline, stage-1 RepCONC training and
+           stage-2 JPQ training (K1's two passes in every step)
+  cli/     run_repconc_eval, run_train_conc, run_train_jpq,
+           run_extract_hardneg
   csrc/    hand-written CUDA kernels, built with nvcc at first use (build.py)
 """
 

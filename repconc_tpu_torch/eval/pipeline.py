@@ -51,7 +51,7 @@ def repconc_retrieval(model, tokenizer, corpus: Dict[Any, str],
     return run_from_topk(query_ids, scores, ids), codes, corpus_ids, query_ids
 
 
-def _flat_metrics(qrels, run, k_values, mrr_k_values) -> Dict[str, float]:
+def flat_metrics(qrels, run, k_values, mrr_k_values) -> Dict[str, float]:
     """Flat {"MRR@10": ...} dict for validation logs."""
     metrics = evaluate_run(qrels, run, k_values=k_values,
                            mrr_k_values=mrr_k_values)
@@ -74,4 +74,4 @@ def evaluate_repconc_model(model, tokenizer, corpus: Dict[Any, str],
         model, tokenizer, corpus, queries, max_seq_length=max_seq_length,
         topk=topk, encode_batch=encode_batch, device=device,
         stopwatch=stopwatch)
-    return _flat_metrics(qrels, run, k_values, mrr_k_values)
+    return flat_metrics(qrels, run, k_values, mrr_k_values)

@@ -96,6 +96,20 @@ def load_qrels(qrel_path: str, rel_threshold: int = 1) -> Dict[str, list]:
     return qrels
 
 
+def iter_run(run_path: str):
+    """Stream a TREC run file as (qid, docid, rank) tuples (rank 1-based).
+
+    Scores and the run tag are not surfaced: every consumer in the pipeline
+    (hard-negative mining, validation-set carving) selects by rank cutoff.
+    """
+    with open(run_path) as fh:
+        for line in fh:
+            fields = line.split()
+            if not fields:
+                continue
+            yield fields[0], fields[2], int(fields[3])
+
+
 def write_run_tsv(
     out_path: str,
     query_ids: Iterable,

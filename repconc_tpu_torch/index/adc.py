@@ -142,6 +142,22 @@ def score_codes_int8_reference(lut_i8: torch.Tensor, scales: torch.Tensor,
     return acc
 
 
+def plain_topk(lut: torch.Tensor, codes: torch.Tensor, n_valid: int,
+               topk: int, chunk_size: int = 1 << 16):
+    """Exact top-k of docs 0..n_valid-1 (topk <= n_valid) by the plain
+    scorer over `lut`, a chunk of docs at a time, so no (Q, N) buffer is
+    held: (scores, ids), each (Q, topk)."""
+    Q = lut.shape[0]
+    best_s = torch.full((Q, topk), -torch.inf, device=lut.device)
+    best_i = torch.zeros((Q, topk), dtype=torch.long, device=lut.device)
+    for start in range(0, n_valid, chunk_size):
+        scores = score_codes_reference(
+            lut, codes[start:min(start + chunk_size, n_valid)])
+        s, i = torch.topk(scores, min(topk, scores.shape[1]), dim=1)
+        best_s, best_i = merge_topk(best_s, best_i, s, i + start)
+    return best_s, best_i
+
+
 def adc_search(query_embeds, codes, centroids, topk: int = 1000,
                chunk_size: int = 1 << 16, device="cuda"
                ) -> Tuple[np.ndarray, np.ndarray]:
@@ -153,36 +169,35 @@ def adc_search(query_embeds, codes, centroids, topk: int = 1000,
     dev = resolve_device(device)
     q = torch.as_tensor(np.asarray(query_embeds, dtype=np.float32), device=dev)
     cent = torch.as_tensor(np.asarray(centroids, dtype=np.float32), device=dev)
-    lut = build_lut(q, cent)
     N = codes.shape[0]
-    topk = min(topk, N)
-    best_s = torch.full((q.shape[0], topk), -torch.inf, device=dev)
-    best_i = torch.zeros((q.shape[0], topk), dtype=torch.long, device=dev)
-    for start in range(0, N, chunk_size):
-        cc = torch.as_tensor(codes[start:start + chunk_size], device=dev)
-        scores = score_codes_reference(lut, cc)
-        s, i = torch.topk(scores, min(topk, cc.shape[0]), dim=1)
-        best_s, best_i = merge_topk(best_s, best_i, s, i + start)
-    return best_s.cpu().numpy(), best_i.cpu().numpy()
+    s, i = plain_topk(build_lut(q, cent), torch.as_tensor(codes, device=dev),
+                      N, min(topk, N), chunk_size)
+    return s.cpu().numpy(), i.cpu().numpy()
 
 
 def batch_adc_search(query_ids, query_embeds, corpus_ids, codes, centroids,
-                     topk: int, batch_size: int = 1200, device="cuda"
-                     ) -> Tuple[np.ndarray, np.ndarray]:
+                     topk: int, batch_size: int = 1200, device="cuda",
+                     searcher=None) -> Tuple[np.ndarray, np.ndarray]:
     """Query-batched ADC search returning docid strings (adc.py:101-134).
 
     Dispatch differs from the JAX package, which takes the Pallas index only
     off-CPU with N >= 20 000 (adc.py:115) to spare a Pallas compile on the
     TPU. Here a CUDA device always takes CudaADCIndex, at every N, with the
     LUT rounded to bf16 as the TPU kernel takes it; the CPU takes
-    adc_search with the fp32 LUT, as JAX does on the CPU.
+    adc_search with the fp32 LUT, as JAX does on the CPU. `searcher`: a
+    CudaADCIndex on the CUDA device already holding `codes`, searched with
+    `centroids` swapped in, so the codes are not uploaded again (stage 2's
+    validation); the CPU ignores it.
     """
     dev = resolve_device(device)
-    searcher = None
-    if dev.type == "cuda":
+    if dev.type != "cuda":
+        searcher = None
+    elif searcher is None:
         from repconc_tpu_torch.index.cuda_adc import CudaADCIndex
 
         searcher = CudaADCIndex(codes, centroids, device=dev)
+    else:
+        searcher.set_centroids(centroids)
     k = min(topk, codes.shape[0])
     if len(query_ids) == 0:
         return (np.zeros((0, k), np.float32),

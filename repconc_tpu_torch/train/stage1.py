@@ -326,7 +326,9 @@ def load_train_state(path: str, model, tx: Stage1Optimizer,
     return meta["step"], meta["best_metric"]
 
 
-def _save_model_dir(path: str, model, tokenizer) -> None:
+def save_model_dir(path: str, model, tokenizer) -> None:
+    """A model dir both packages load, with the tokenizer's files when the
+    tokenizer can save them."""
     repconc_model.save_pretrained(path, model)
     if getattr(tokenizer, "save_pretrained", None) is not None:
         tokenizer.save_pretrained(path)
@@ -399,12 +401,12 @@ def train(model, batches: Iterator[Dict[str, np.ndarray]], hp: Stage1Hparams,
             score = eval_m.get(metric_for_best, 0.0)
             if score > best:
                 best = score
-                _save_model_dir(os.path.join(output_dir, "best"), model,
-                                tokenizer)
+                save_model_dir(os.path.join(output_dir, "best"), model,
+                               tokenizer)
         if hp.save_steps and step % hp.save_steps == 0:
             save_train_state(ckpt_dir, model, tx, seeds, step, best)
 
     save_train_state(ckpt_dir, model, tx, seeds, step, best)
-    _save_model_dir(os.path.join(output_dir, "final"), model, tokenizer)
+    save_model_dir(os.path.join(output_dir, "final"), model, tokenizer)
     return {"model": model, "step": step, "best_metric": best,
             "history": history}

@@ -547,3 +547,99 @@ def test_constrained_encode_on_card_matches_cpu(cuda):
     tied = (top2[..., 0] - top2[..., 1] < 1e-3).T
     assert bool((got[~tied] == want[~tied]).all())
     assert float(tied.float().mean()) < 0.25
+
+
+def test_adc_topk_at_the_stage2_search_shape(cuda):
+    """Stage 2's in-step search: Q=128 queries, k=200, M=12, a corpus of
+    1,000,003 docs and pad rows, against the plain scorer and torch.topk:
+    scores bit for bit, each id carrying its plain score, ids equal except
+    in the order among exact ties (the lower id first)."""
+    from repconc_tpu_torch.index.cuda_adc import adc_topk
+
+    N = 1_000_003
+    lut, codes = _pass_inputs(cuda, 128, N, 12, 77)
+    s, i = adc_topk(lut, codes, N, 200)
+    plain = score_codes_reference(lut, codes[:N])
+    s_ref, _ = torch.topk(plain, 200, dim=1)
+    assert torch.equal(s, s_ref)
+    assert torch.equal(torch.gather(plain, 1, i), s)
+    assert bool((i[:, 1:] > i[:, :-1])[s[:, 1:] == s[:, :-1]].all())
+
+
+def _distinct_codes(g, n, M, K):
+    flat = torch.randperm(K ** M, generator=g)[:n]
+    return torch.stack([(flat // K ** j) % K for j in range(M)],
+                       1).to(torch.uint8)
+
+
+@pytest.mark.parametrize("metric", ["METRIC_IP", "METRIC_CENTROID_COS"])
+def test_stage2_step_on_card_matches_cpu(cuda, metric):
+    """One stage-2 step from the same weights and batch: on the card the
+    in-step search is K1's two passes, on the CPU their plain versions
+    (use_pallas_search=True), both over the bf16 LUT. The retrieved ids are
+    equal except where the two LUTs, rounded to bf16 from embeddings that
+    differ in fp32 rounding, move a doc across the k-th score; the loss
+    within 1e-5 relative, gradients within 1e-4 of each array's largest |g|
+    (the centroids' gradient accumulates with atomics on the card), the
+    parameters within 1e-6 but where Adam's first step sees a gradient
+    within that bar of zero (2 lr there), as in the stage-1 test above."""
+    import copy
+
+    from repconc_tpu_torch.core.device import resolve_device
+    from repconc_tpu_torch.index.adc import build_lut
+    from repconc_tpu_torch.train import stage1, stage2
+
+    dev = resolve_device("cuda")
+    cpu = _toy_training_model(metric)
+    card = copy.deepcopy(cpu).to(dev)
+    N, k = 5003, 64
+    codes = _distinct_codes(torch.Generator().manual_seed(3), N, 4, 16)
+    rng = np.random.default_rng(2)
+    batch = {k_: v for k_, v in _toy_training_batch(rng).items()
+             if k_.startswith("query_") or k_ in ("qids", "pos_docids")}
+    batch["query_positives"][::2, 1] = torch.as_tensor(
+        rng.integers(0, N, size=4).astype(np.int32))
+    hp = stage2.Stage2Hparams(dynamic_topk_negative=k, total_steps=10,
+                              use_pallas_search=True)
+    out = {}
+    for name, model, device in (("cpu", cpu, "cpu"), ("card", card, dev)):
+        b = {k_: v.to(device) for k_, v in batch.items()}
+        loss, _, aux = stage2.loss_fn(model, hp, b, codes.to(device), N, True)
+        tx = stage1.make_optimizer(hp.as_stage1(), model)
+        metrics = stage2.make_train_step(model, hp, tx, codes.to(device))(b)
+        out[name] = ({k_: float(v) for k_, v in metrics.items()},
+                     {n: p.grad.cpu() for n, p in model.named_parameters()},
+                     aux["neg_pids"].cpu(), aux["q_embeds"].cpu())
+    (m_cpu, g_cpu, i_cpu, q_cpu), (m_card, g_card, i_card, q_card) = (
+        out["cpu"], out["card"])
+    cent = _toy_training_model(metric).centroids.detach()  # before the step
+    lut_cpu = build_lut(q_cpu, cent).to(torch.bfloat16)
+    lut_card = build_lut(q_card, cent).to(torch.bfloat16)
+    scores = score_codes_reference(lut_cpu, codes)
+    kth = torch.topk(scores, k, dim=1).values[:, -1:]
+    near = codes.shape[1] * float(
+        (lut_card.float() - lut_cpu.float()).abs().max()) + 1e-6
+    differ = torch.zeros_like(scores, dtype=torch.bool)
+    differ.scatter_(1, i_cpu, True)
+    card_set = torch.zeros_like(differ).scatter_(1, i_card, True)
+    differ ^= card_set
+    assert bool(((scores - kth).abs()[differ] <= near).all())
+    assert bool((i_card < N).all())
+    for k_ in m_cpu:
+        assert m_card[k_] == pytest.approx(m_cpu[k_], rel=1e-5, abs=1e-7), k_
+    top = max(float(g.abs().max()) for g in g_cpu.values())
+    for n, g in g_cpu.items():
+        bar = (1e-6 * top if n.endswith("key.bias")
+               else 1e-4 * max(float(g.abs().max()), 1e-12))
+        assert float((g_card[n] - g).abs().max()) <= bar, n
+    card_state = card.state_dict()
+    for n, a in cpu.state_dict().items():
+        d = (card_state[n].cpu() - a).abs()
+        g = g_cpu[n].abs()
+        free = (torch.ones_like(g, dtype=torch.bool) if n.endswith("key.bias")
+                else g <= 1e-4 * g.max())
+        lr = hp.centroid_learning_rate if n == "centroids" else hp.learning_rate
+        if (~free).any():
+            assert float(d[~free].max()) <= 1e-6, n
+        if free.any():
+            assert float(d[free].max()) <= 2 * lr, n

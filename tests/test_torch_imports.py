@@ -20,13 +20,18 @@ SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 NEVER = ("jax", "flax", "optax", "orbax", "msgpack",  # nowhere, not
          "repconc_tpu")                                 # even lazily
 LAZY_ONLY = ("transformers", "safetensors")  # inside functions only
-# the modules of stage-1 training, each guarded by the tests below
+# the modules of stage-1 and stage-2 training and of the hard-negative
+# miner, each guarded by the tests below
 TRAINING_MODULES = ["repconc_tpu_torch.train", "repconc_tpu_torch.train.data",
                     "repconc_tpu_torch.train.stage1",
                     "repconc_tpu_torch.quant.sinkhorn",
                     "repconc_tpu_torch.quant.losses",
                     "repconc_tpu_torch.core.logging_utils",
-                    "repconc_tpu_torch.cli.run_train_conc"]
+                    "repconc_tpu_torch.cli.run_train_conc",
+                    "repconc_tpu_torch.train.stage2",
+                    "repconc_tpu_torch.cli.run_train_jpq",
+                    "repconc_tpu_torch.cli.run_extract_hardneg",
+                    "repconc_tpu_torch.eval.run_io"]
 
 
 def _module_names():
