@@ -71,9 +71,41 @@ shows where it stopped:
                 the ranking equals the flat ranking except near-ties; the
                 int8 LUT run and nprobe=8 recall; every run's scores
                 re-summed as in phase 6; TREC run written and scored
+  7b dense_front
+                stages 0 and 2-5 of the pipeline chained at the M=12
+                checkpoint's encoder widths (768 hidden, 12 layers, vocab
+                7905, mean pooling, METRIC_IP) through the functions the
+                CLIs call: an HF dir of seeded weights written by
+                save_hf_checkpoint and read back bit-equal; stage 0 (the
+                run-free validation set, 4 steps of dense training at the
+                recipe's values: 256 queries of 16 tokens, one random
+                negative, docs of 128 tokens, GradCache chunks of 128, lr
+                1e-4; one dense validation, no K1 launch; export_hf equal to
+                best/); stage 2 (customize); stage 3 (dense eval of 16,384
+                synthetic docs and 256 queries through the resumable cache,
+                top-200 against a plain fp64 top-200, 1,024 docs card vs
+                CPU within 1e-4); stage 4 (the validation set from the
+                run); stage 5 (run_warmup at M=12, K=256, the CLI's
+                defaults: the model dir loads, the rotation is orthogonal,
+                codes.npy equals the model's own codes of 2,048 docs except
+                fp32 near-ties); stage 6 (the warm-up model's top-210 from
+                the warm-up index through K1's two passes, then the
+                miner); stage-0 step ms and peak memory, encode docs/s,
+                warm-up s
+  7c dense_scale
+                stages 3 and 5 at MS MARCO's size, the encoder bypassed:
+                8,841,823 x 768 correlated fp32 embeddings (27.2 GB) made on
+                the card; batch_flat_search of 1200 queries at top-200
+                (the top-200 of 16 queries against a plain fp64 top-200; ms
+                against its bound); warmup_from_embeds at the CLI's
+                defaults on the resident corpus (262,144 training points,
+                20 x 4 + 25 Lloyd iterations): the rotation orthogonal,
+                OPQ's MSE below plain PQ's on the same subsample; OPQ fit
+                s, PQ encode s, peak memory; the 27.2 GB freed
   8 train_stage1
-                stage-1 training at full width (the M=12 config, seeded
-                weights, the CLI's defaults: 64 queries + 64 positives + 64
+                stage-1 training at full width (the M=12 config, from
+                dense_front's warm-up model dir as stage 7 starts, the
+                CLI's defaults: 64 queries + 64 positives + 64
                 random negatives a step, lengths 16 / 128, the Sinkhorn
                 constraint at eps 0.003 and 100 iterations) through
                 train/stage1.py::train: 10 steps, saves every 5, one
@@ -1604,16 +1636,17 @@ def step_gaps(cpu, card, lr: float, centroid_lr: float):
     key = [n for n in g_cpu if n.endswith("key.bias")]
     top = max(float(g.abs().max()) for g in g_cpu.values())
     out = {
-        "metrics_rel": max(abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]),
-                                                            1e-12)
-                           for k in m_cpu),
+        "metrics_rel_by_key": {k: abs(m_card[k] - m_cpu[k])
+                               / max(abs(m_cpu[k]), 1e-12) for k in m_cpu},
         "grad_rel": max(float((g_card[n] - g).abs().max())
                         / max(float(g.abs().max()), 1e-12)
                         for n, g in g_cpu.items() if n not in key),
         "key_bias_grad_rel": max(float((g_card[n] - g_cpu[n]).abs().max())
                                  for n in key) / top,
+        "metrics": {k: (m_cpu[k], m_card[k]) for k in m_cpu},
         "param_abs": 0.0, "near_zero_grad_param_lr": 0.0,
         "near_zero_grad_moved": 0}
+    out["metrics_rel"] = max(out["metrics_rel_by_key"].values())
     for n, g in g_cpu.items():
         d = (p_card[n] - p_cpu[n]).abs()
         free = (torch.ones_like(g, dtype=torch.bool) if n in key else
@@ -1638,10 +1671,11 @@ def check_step_gaps(gaps, what: str) -> None:
           f"{what} card == CPU ({gaps})")
 
 
-def phase_train_stage1(dev):
+def phase_train_stage1(dev, warmup_dir: str):
     """Stage-1 training at full width through train/stage1.py::train (the
     card has no `transformers`, so not through the CLI, whose tokenizer
-    loader needs it): the M=12 config with seeded weights, the CLI's
+    loader needs it): from dense_front's warm-up model dir, as stage 7
+    starts (recipes/run_pipeline.sh:153), the M=12 config; the CLI's
     defaults (64 queries, one random negative each, query / doc lengths 16
     / 128, the constraint on, lr 2e-5, centroid lr 5e-4, clip 1.0), 10
     steps, logging every 5, saves every 5 and a validation at step 10 over
@@ -1654,15 +1688,17 @@ def phase_train_stage1(dev):
     from repconc_tpu_torch.core.checkpoint import load_params, params_to_bytes
     from repconc_tpu_torch.eval.pipeline import evaluate_repconc_model
     from repconc_tpu_torch.models.convert import to_jax_params
-    from repconc_tpu_torch.models.repconc_model import RepConcModel, init_random_
+    from repconc_tpu_torch.models.repconc_model import (
+        RepConcModel, from_pretrained, init_random_)
     from repconc_tpu_torch.quant import codebook, sinkhorn
     from repconc_tpu_torch.train import stage1
     from repconc_tpu_torch.train.data import (FinetuneCollator, QDRelDataset,
                                               batch_iterator)
 
-    config = m12_config()
-    init = init_random_(RepConcModel(config),
-                        torch.Generator().manual_seed(SEED + 1), std=0.02)
+    init = from_pretrained(warmup_dir, device="cpu")
+    config = init.config
+    check(config.to_dict() == m12_config().to_dict(),
+          "the warm-up model dir holds the M=12 config")
     tok = HashTokenizer(config.encoder.vocab_size)
     hp = stage1.Stage1Hparams(total_steps=10, logging_steps=5, eval_steps=10,
                               save_steps=5)
@@ -1737,13 +1773,47 @@ def phase_train_stage1(dev):
         # take argmin codes: against K = 256 centroids the constraint
         # splits each of 16 docs evenly over ~16 centroids, so every
         # constrained argmax is an exact tie that rounding decides (the
-        # constrained codes are held above, at the step's 128 docs)
+        # constrained codes are held above, at the step's 128 docs). The
+        # step starts from seeded weights: the warm-up's centroids fit the
+        # docs, so an argmin code can sit at an fp32 near-tie and flip
+        # between the devices, which moves the loss and the gradients by
+        # more than rounding; those codes are held below, equal except at
+        # near-ties
         small = next(batches(8, SEED + 3))
         hp_small = stage1.Stage1Hparams(**dict(hp.__dict__,
                                                use_constraint=False))
-        step_out = {}
-        for where, m, d in (("cpu", copy.deepcopy(init), "cpu"),
+        seeded = init_random_(RepConcModel(config),
+                              torch.Generator().manual_seed(SEED + 1),
+                              std=0.02)
+        warm_codes = {}
+        for where, m, d in (("cpu", init, "cpu"),
                             ("card", copy.deepcopy(init).to(dev), dev)):
+            with torch.no_grad():
+                docs16 = torch.cat([m.encode_continuous(
+                    torch.as_tensor(small[f"{k}_input_ids"]).to(d),
+                    torch.as_tensor(small[f"{k}_attention_mask"]).to(d))
+                    for k in ("pos", "neg")])
+            warm_codes[where] = (codebook.encode(docs16, m.centroids.detach(),
+                                                 use_constraint=False).cpu(),
+                                 docs16.cpu().double())
+        flips = torch.nonzero(warm_codes["cpu"][0] != warm_codes["card"][0])
+        cent64 = init.centroids.detach().double()
+        flip_gap = 0.0
+        for r, m in flips.tolist():
+            sub = warm_codes["cpu"][1][r, m * config.dsub:(m + 1) * config.dsub]
+            a = cent64[m, int(warm_codes["cpu"][0][r, m])]
+            b = cent64[m, int(warm_codes["card"][0][r, m])]
+            scale = float((sub * sub).sum() + torch.maximum((a * a).sum(),
+                                                            (b * b).sum()))
+            flip_gap = max(flip_gap, abs(float(((sub - a) ** 2).sum()
+                                               - ((sub - b) ** 2).sum()))
+                           / scale)
+        check(flip_gap <= 1e-5, f"the warm-up model's argmin codes of the "
+                                f"step's 16 docs, card == CPU except fp32 "
+                                f"near-ties ({len(flips)} differ, {flip_gap})")
+        step_out = {}
+        for where, m, d in (("cpu", copy.deepcopy(seeded), "cpu"),
+                            ("card", copy.deepcopy(seeded).to(dev), dev)):
             tx = stage1.make_optimizer(hp_small, m)
             metrics = stage1.make_train_step(m, hp_small, tx)(
                 {k: torch.as_tensor(v).to(d) for k, v in small.items()})
@@ -1754,7 +1824,7 @@ def phase_train_stage1(dev):
         gaps = step_gaps(step_out["cpu"], step_out["card"], hp.learning_rate,
                          hp.centroid_learning_rate)
         check_step_gaps(gaps, "8-query step")
-        del step_out
+        del step_out, seeded
 
         # timings on the trained model, the full batch, dropout on
         full = {k: torch.as_tensor(v).to(dev) for k, v in next(batches()).items()}
@@ -1789,7 +1859,8 @@ def phase_train_stage1(dev):
          validation_mrr_at_10=eval_m["MRR@10"],
          validation_docs=len(valid[0]), validation_queries=len(valid[1]),
          codes_tied_share=float(tied.float().mean()),
-         step_card_vs_cpu=gaps)
+         step_card_vs_cpu=gaps, warmup_argmin_flips=len(flips),
+         warmup_argmin_flip_gap=flip_gap)
     print(f"train_stage1 step_ms {step_ms:.3f} queries_per_s "
           f"{batch_size / step_ms * 1e3:.1f} docs_per_s "
           f"{docs / step_ms * 1e3:.1f}", flush=True)
@@ -2134,6 +2205,462 @@ def phase_train_stage2(dev, stage1_model):
                 shape={"Q": batch_size, "N": N, "M": M, "K": K, "topk": k})
 
 
+def m12_hf_config():
+    """The HF config.json of the M=12 checkpoint's encoder (the keys of
+    artifacts/r5h_export_hf.tar's export_hf/config.json that the port
+    reads): bert-base widths, a 7,905-word vocabulary, mean pooling,
+    METRIC_IP."""
+    return {"architectures": ["BertModel"], "model_type": "bert",
+            "vocab_size": 7905, "hidden_size": 768, "num_hidden_layers": 12,
+            "num_attention_heads": 12, "intermediate_size": 3072,
+            "max_position_embeddings": 512, "type_vocab_size": 2,
+            "layer_norm_eps": 1e-12, "hidden_act": "gelu",
+            "hidden_dropout_prob": 0.1, "attention_probs_dropout_prob": 0.1,
+            "pad_token_id": 0, "pooling": "mean",
+            "similarity_metric": "METRIC_IP"}
+
+
+def write_pipeline_files(root: str, corpus, queries, qrels, n_train: int):
+    """corpus.tsv, and the first n_train queries as the train split, the
+    rest as the dev split (queries.*.tsv, qrels.*.tsv)."""
+    qids = list(queries)
+    paths = {"corpus": os.path.join(root, "corpus.tsv")}
+    with open(paths["corpus"], "w") as f:
+        f.writelines(f"{d}\t{t}\n" for d, t in corpus.items())
+    for split, part in (("train", qids[:n_train]), ("dev", qids[n_train:])):
+        paths[f"queries_{split}"] = os.path.join(root, f"queries.{split}.tsv")
+        paths[f"qrels_{split}"] = os.path.join(root, f"qrels.{split}.tsv")
+        with open(paths[f"queries_{split}"], "w") as f:
+            f.writelines(f"{q}\t{queries[q]}\n" for q in part)
+        with open(paths[f"qrels_{split}"], "w") as f:
+            f.writelines(f"{q} 0 {d} {r}\n" for q in part
+                         for d, r in qrels[q].items())
+    return paths
+
+
+def valid_set_args(paths, split: str, out: str, mode):
+    """run_gen_valid_set's arguments over the `split` queries into `out`."""
+    return (["--input_corpus_path", paths["corpus"],
+             "--input_query_path", paths[f"queries_{split}"],
+             "--input_qrel_path", paths[f"qrels_{split}"]] + mode
+            + ["--output_corpus_path", os.path.join(out, "corpus.tsv"),
+               "--output_query_path", os.path.join(out, "queries.tsv"),
+               "--output_qrel_path", os.path.join(out, "qrels.tsv")])
+
+
+def dense_topk_agrees(queries, corpus, scores, ids, rows: int = 1 << 18):
+    """The fp32 top-k (scores, row ids) of `queries` against a plain fp64
+    top-k over the same corpus (on the device, `rows` rows at a time): the
+    same ids except where fp64 scores lie within the fp32 rounding of a
+    768-term dot product (1e-5 of the largest |score|) of the k-th, and
+    the scores within that rounding. Returns (ok, the bar, the largest
+    score gap)."""
+    import torch
+
+    q = queries.double()
+    k = ids.shape[1]
+    best_s = torch.full((q.shape[0], k), -torch.inf, dtype=torch.float64,
+                        device=q.device)
+    best_i = torch.zeros((q.shape[0], k), dtype=torch.int64, device=q.device)
+    for start in range(0, corpus.shape[0], rows):
+        s, i = torch.topk(q @ corpus[start:start + rows].double().T,
+                          min(k, corpus.shape[0] - start), dim=1)
+        s = torch.cat([best_s, s], 1)
+        i = torch.cat([best_i, i + start], 1)
+        best_s, pos = torch.topk(s, k, dim=1)
+        best_i = torch.gather(i, 1, pos)
+    bar = 1e-5 * float(best_s.abs().max())
+    gap = float((scores.double() - best_s).abs().max())
+    ok = gap <= bar
+    for r in range(q.shape[0]):
+        mine = set(ids[r].tolist())
+        plain = set(best_i[r].tolist())
+        for j in mine ^ plain:  # in one top-k only: at the k-th score
+            s_j = float(q[r] @ corpus[j].double())
+            ok &= abs(s_j - float(best_s[r, -1])) <= bar
+    return ok, bar, gap
+
+
+def phase_dense_front(dev, root: str):
+    """Stages 0 and 2-5 chained at the M=12 checkpoint's encoder widths,
+    through the functions the CLIs call (the card has no `transformers`;
+    HashTokenizer stands in), then stage 6's retrieval and miner from the
+    warm-up index. Leaves root/warmup_model for train_stage1."""
+    import copy
+
+    import numpy as np
+    import torch
+    from repconc_tpu_torch.cli import (run_customize_dense, run_dense_eval,
+                                       run_extract_hardneg, run_gen_valid_set,
+                                       run_train_dense, run_warmup)
+    from repconc_tpu_torch.core.checkpoint import atomic_np_save
+    from repconc_tpu_torch.core.profiling import Stopwatch
+    from repconc_tpu_torch.eval.encode import (clear_encode_cache,
+                                               encode_corpus, encode_queries,
+                                               encode_texts)
+    from repconc_tpu_torch.eval.pipeline import repconc_retrieval
+    from repconc_tpu_torch.eval.run_io import (load_corpus, load_queries,
+                                               write_run_tsv)
+    from repconc_tpu_torch.eval.trec import evaluate_run, parse_qrels
+    from repconc_tpu_torch.index.flat import batch_flat_search
+    from repconc_tpu_torch.models.auto import (load_dense_encoder,
+                                               save_hf_checkpoint)
+    from repconc_tpu_torch.models.repconc_model import (
+        RepConcModel, from_dense_encoder, from_pretrained, init_random_)
+    from repconc_tpu_torch.train import stage1
+    from repconc_tpu_torch.train.data import (FinetuneCollator, QDRelDataset,
+                                              batch_iterator)
+
+    t_phase = time.perf_counter()
+    out = {}
+    config = m12_config()
+    tok = HashTokenizer(config.encoder.vocab_size)
+    sep = tok.sep_token
+
+    # the HF dir: seeded weights written by save_hf_checkpoint, read back
+    src, hf_dir = os.path.join(root, "src"), os.path.join(root, "hf")
+    os.makedirs(src)
+    with open(os.path.join(src, "config.json"), "w") as f:
+        json.dump(m12_hf_config(), f)
+    weights = init_random_(RepConcModel(config), torch.Generator().manual_seed(
+        SEED + 4), std=0.02).encoder.state_dict()
+    t0 = time.perf_counter()
+    save_hf_checkpoint(hf_dir, src, weights, config.encoder)
+    cfg, on_card, metric = load_dense_encoder(hf_dir, device=dev)
+    out["hf_write_read_s"] = time.perf_counter() - t0
+    check(set(on_card) == set(weights) and all(
+        torch.equal(on_card[k].cpu(), v) for k, v in weights.items()),
+        "every tensor of the HF dir reads back bit-equal")
+    check(cfg.pooling == "mean" and metric == "METRIC_IP"
+          and cfg.vocab_size == 7905, "the HF dir's config reads back")
+    del weights, on_card
+
+    corpus, queries, qrels = synthetic_data(n_docs=16_384, n_queries=1280,
+                                            seed=SEED + 5)
+    paths = write_pipeline_files(root, corpus, queries, qrels, n_train=1024)
+
+    # stage 0: the run-free validation set, dense pre-training, the export
+    valid0 = os.path.join(root, "valid0")
+    run_gen_valid_set.main(valid_set_args(paths, "dev", valid0,
+                                          ["--random_sample", "2048"]))
+    valid_set = (load_corpus(os.path.join(valid0, "corpus.tsv"), sep),
+                 load_queries(os.path.join(valid0, "queries.tsv")),
+                 parse_qrels(os.path.join(valid0, "qrels.tsv")))
+    model = from_dense_encoder(hf_dir, MCQ_M=1, similarity_metric="METRIC_IP",
+                               pooling="mean", device=dev)
+    dataset = QDRelDataset(paths["qrels_train"], paths["queries_train"],
+                           paths["corpus"], negative="random",
+                           negative_per_query=1, sep_token=sep, max_positives=8)
+    collator = FinetuneCollator(tok, 16, 128, max_positives=8)
+    steps, batch_size = 4, 256
+    hp = stage1.Stage1Hparams(
+        learning_rate=1e-4, centroid_learning_rate=0.0, weight_decay=0.01,
+        warmup_steps=100, total_steps=steps, negative_per_query=1,
+        quantize=False, cache_chunk_size=128, seed=SEED, logging_steps=1,
+        eval_steps=steps, save_steps=steps)
+    pretrain = os.path.join(root, "dense_pretrain")
+    logs = []
+    reset_launches()
+    t0 = time.perf_counter()
+    trained = stage1.train(
+        model, batch_iterator(dataset, collator, batch_size, seed=SEED), hp,
+        pretrain, tokenizer=tok, valid_set=valid_set, log_fn=logs.append,
+        device=dev)
+    torch.cuda.synchronize()
+    out["stage0_train_call_s"] = time.perf_counter() - t0
+    out["stage0_launches"] = launch_counts()
+    check(out["stage0_launches"]["adc_group_max"] == 0
+          and out["stage0_launches"]["adc_filter"] == 0,
+          "stage 0's validation is the dense search: no K1 launch")
+    check(trained["step"] == steps and all(
+        np.isfinite(h["loss"]) for h in trained["history"]),
+        f"stage 0 trained {trained['step']} steps with finite losses")
+    evals = [m for m in logs if "eval_MRR@10" in m]
+    check(len(evals) == 1 and 0.0 <= evals[0]["eval_MRR@10"] <= 1.0,
+          "one dense validation with MRR@10 in [0, 1]")
+    export = run_train_dense.export_best(pretrain, hf_dir, dev)
+    best = from_pretrained(os.path.join(pretrain, "best"), device="cpu")
+    _, exported, _ = load_dense_encoder(export, device="cpu")
+    check(all(torch.equal(exported[k], v)
+              for k, v in best.encoder.state_dict().items()),
+          "export_hf holds best/'s encoder bit for bit")
+    del best, exported
+    # the step time on the trained model at the recipe's batch (median of
+    # 3 after 1), and its peak memory
+    full = {k: torch.as_tensor(v).to(dev) for k, v in next(batch_iterator(
+        dataset, collator, batch_size, seed=SEED + 1)).items()}
+    tx = stage1.make_optimizer(hp, model)
+    step_fn = stage1.make_train_step(model, hp, tx)
+    seeds = torch.Generator().manual_seed(SEED)
+    out["stage0_step_ms"] = time_ms(lambda: step_fn(full, seeds), reps=3,
+                                    warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    step_fn(full, seeds)
+    torch.cuda.synchronize()
+    out["stage0_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["stage0_history"] = trained["history"]
+    out["stage0_eval"] = evals[0]
+    del model, trained, full, tx, step_fn
+    torch.cuda.empty_cache()
+
+    # stage 2: customize the export
+    dense_dir = os.path.join(root, "dense_model")
+    run_customize_dense.main(["--model_name_or_path", export,
+                              "--similarity_metric", "METRIC_IP",
+                              "--pooling", "mean", "--output_dir", dense_dir])
+
+    # stage 3: dense eval through the resumable cache, top-200
+    dense_out = os.path.join(root, "dense")
+    model = run_dense_eval.load_model(dense_dir, device=dev)
+    sw = Stopwatch()
+    shards = os.path.join(dense_out, "encode_shards")
+    full_corpus = load_corpus(paths["corpus"], sep)
+    with sw("encode_corpus"):
+        embeds, corpus_ids = encode_corpus(
+            full_corpus, model, tok, 512, batch_size=256,
+            output="continuous_embedding", device=dev, stopwatch=sw,
+            cache_dir=shards)
+    emb_path = os.path.join(dense_out, "corpus_embeds.npy")
+    ids_path = os.path.join(dense_out, "corpus_ids.npy")
+    atomic_np_save(emb_path, embeds)
+    atomic_np_save(ids_path, corpus_ids)
+    clear_encode_cache(shards)
+    check(embeds.shape == (len(full_corpus), config.hidden_size)
+          and embeds.dtype == np.float32 and bool(np.isfinite(embeds).all()),
+          "corpus embeddings (N, 768)")
+    dev_queries = load_queries(paths["queries_dev"])
+    with sw("encode_queries"):
+        q_embeds, query_ids = encode_queries(dev_queries, model, tok, 512,
+                                             device=dev)
+    with sw("search"):
+        scores, topk_ids = batch_flat_search(query_ids, q_embeds, corpus_ids,
+                                             embeds, topk=200, device=dev)
+    run_path = os.path.join(dense_out, "run.tsv")
+    write_run_tsv(run_path, query_ids, scores, topk_ids)
+    metrics = evaluate_run(paths["qrels_dev"], run_path)
+    row_of = {c: j for j, c in enumerate(corpus_ids)}
+    rows = torch.tensor([[row_of[d] for d in r] for r in topk_ids], device=dev)
+    ok, bar, gap = dense_topk_agrees(
+        torch.as_tensor(q_embeds, device=dev),
+        torch.as_tensor(embeds, device=dev),
+        torch.as_tensor(scores, device=dev), rows)
+    check(ok, f"stage 3's top-200 equals a plain fp64 top-200 except ties "
+              f"(bar {bar}, gap {gap})")
+    # the 1,024 shortest docs (the last four batches, encoded alike) on the
+    # CPU: agreement to 1e-4 shows TF32 is off
+    texts = [full_corpus[c] for c in corpus_ids[-1024:]]
+    on_cpu = encode_texts(texts, copy.deepcopy(model).cpu(), tok, 512,
+                          batch_size=256, device="cpu")
+    cpu_gap = float(np.abs(on_cpu - embeds[-1024:]).max())
+    check(cpu_gap <= 1e-4, f"stage-3 embeddings card vs CPU within 1e-4 "
+                           f"({cpu_gap})")
+    t = sw.totals
+    out.update(stage3_encode_s=t["encode_corpus"],
+               stage3_docs_per_s=len(full_corpus) / t["encode_corpus"],
+               stage3_tokenize_s=t["tokenize"],
+               stage3_search_s=t["search"], stage3_mrr_at_10=metrics["mrr"][
+                   "MRR@10"], stage3_card_vs_cpu=cpu_gap,
+               stage3_topk_gap=gap)
+    del model
+
+    # stage 4: the validation set from the dense run
+    valid = os.path.join(root, "valid")
+    run_gen_valid_set.main(valid_set_args(
+        paths, "dev", valid, ["--input_run_path", run_path, "--topk", "100"]))
+    kept = load_corpus(os.path.join(valid, "corpus.tsv"), sep)
+    judged = {d for q in dev_queries for d in qrels[q]}
+    check(judged <= set(kept) and len(kept) <= len(judged) + 256 * 100,
+          f"the validation corpus holds every judged doc ({len(kept)} docs)")
+    out["stage4_valid_docs"] = len(kept)
+
+    # stage 5: the OPQ warm-up at the CLI's defaults
+    warm_dir = os.path.join(root, "warmup_model")
+    index_dir = os.path.join(root, "warmup_index")
+    t0 = time.perf_counter()
+    run_warmup.main(["--model_name_or_path", dense_dir,
+                     "--MCQ_M", str(config.MCQ_M),
+                     "--input_corpus_embed_path", emb_path,
+                     "--input_corpus_ids_path", ids_path,
+                     "--output_model_dir", warm_dir,
+                     "--output_index_dir", index_dir, "--device", str(dev)])
+    torch.cuda.synchronize()
+    out["stage5_warmup_s"] = time.perf_counter() - t0
+    warm = from_pretrained(warm_dir, device=dev)
+    codes = np.load(os.path.join(index_dir, "codes.npy"))
+    M = config.MCQ_M
+    check(warm.config.MCQ_M == M and warm.config.MCQ_K == 256
+          and codes.shape == (len(full_corpus), M) and codes.dtype == np.uint8
+          and np.array_equal(np.load(os.path.join(index_dir,
+                                                  "corpus_ids.npy")),
+                             corpus_ids), "the warm-up dirs load in the port")
+    R = warm.rotation.detach()
+    orth = float((R @ R.T - torch.eye(R.shape[0], device=dev)).abs().max())
+    check(orth <= 1e-4, f"the warm-up rotation is orthogonal ({orth})")
+    # the warm-up model's own codes for 2,048 docs against codes.npy
+    n_chk, dsub = min(2048, len(full_corpus)), config.dsub
+    own = encode_texts([full_corpus[c] for c in corpus_ids[:n_chk]], warm,
+                       tok, 512, batch_size=256, output="code", device=dev)
+    rotated = (torch.as_tensor(embeds[:n_chk], device=dev) @ R.T).double()
+    cent = warm.centroids.detach().double()
+    # a near-tie: the two centroids' fp64 distances differ by less than
+    # the fp32 rounding of ||x||^2 - 2 x.c + ||c||^2 over 64 terms, taken
+    # as 1e-5 of the operands' squared norms
+    differ = torch.nonzero(torch.as_tensor(own != codes[:n_chk]))
+    worst = 0.0
+    for r, m in differ.tolist():
+        sub = rotated[r, m * dsub:(m + 1) * dsub]
+        c_own, c_idx = cent[m, int(own[r, m])], cent[m, int(codes[r, m])]
+        scale = float((sub * sub).sum() + torch.maximum(
+            (c_own * c_own).sum(), (c_idx * c_idx).sum()))
+        gap = abs(float(((sub - c_own) ** 2).sum() - ((sub - c_idx) ** 2).sum()))
+        worst = max(worst, gap / scale)
+    check(worst <= 1e-5 and len(differ) <= 0.01 * own.size,
+          f"codes.npy equals the warm-up model's codes except fp32 "
+          f"near-ties ({len(differ)} differ, worst gap {worst} of the "
+          f"operands' squared norms)")
+    out.update(stage5_codes_differ=len(differ), stage5_worst_gap=worst,
+               stage5_rotation_orth=orth)
+
+    # stage 6: the warm-up model retrieves the train queries' top-210 from
+    # the warm-up index (K1's two passes), and the miner reads the run
+    train_queries = load_queries(paths["queries_train"])
+    reset_launches()
+    t0 = time.perf_counter()
+    run6, *_ = repconc_retrieval(warm, tok, full_corpus, train_queries,
+                                 max_seq_length=512, topk=210, codes=codes,
+                                 corpus_ids=corpus_ids, device=dev)
+    torch.cuda.synchronize()
+    out["stage6_retrieval_s"] = time.perf_counter() - t0
+    out["stage6_launches"] = launch_counts()
+    check(out["stage6_launches"]["adc_group_max"] > 0
+          and out["stage6_launches"]["adc_filter"] > 0,
+          f"stage 6 ran both passes of K1 ({out['stage6_launches']})")
+    ranked = [sorted(run6[q].items(), key=lambda kv: -kv[1])
+              for q in sorted(run6)]
+    run6_path = os.path.join(root, "warmup_run.tsv")
+    write_run_tsv(run6_path, sorted(run6),
+                  np.array([[s for _, s in r] for r in ranked]),
+                  np.array([[d for d, _ in r] for r in ranked]))
+    hardneg = os.path.join(root, "hardneg.json")
+    run_extract_hardneg.main(["--run_path", run6_path, "--qrel_path",
+                              paths["qrels_train"], "--topk", "200",
+                              "--output_path", hardneg])
+    with open(hardneg) as f:
+        pools = json.load(f)
+    check(len(pools) == len(train_queries) and all(
+        len(v) >= 199 for v in pools.values()), "the miner's negative pools")
+    del warm
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit("dense_front", **out)
+    print(f"dense_front stage0_step_ms {out['stage0_step_ms']:.3f} "
+          f"(batch {batch_size}) peak_memory_gb "
+          f"{out['stage0_peak_memory_gb']:.3f} stage3_docs_per_s "
+          f"{out['stage3_docs_per_s']:.1f} stage5_warmup_s "
+          f"{out['stage5_warmup_s']:.3f}", flush=True)
+    print(card_line(), flush=True)
+    return dict(warmup_dir=warm_dir, launches=out["stage6_launches"],
+                stage0_launches=out["stage0_launches"])
+
+
+def phase_dense_scale(dev):
+    """Stages 3 and 5 at MS MARCO's size, the encoder bypassed: 8,841,823 x
+    768 fp32 embeddings made on the card, searched by batch_flat_search and
+    warmed up by warmup_from_embeds at the CLI's defaults."""
+    import numpy as np
+    import torch
+    from repconc_tpu_torch.core.profiling import Stopwatch
+    from repconc_tpu_torch.index import kmeans, opq
+    from repconc_tpu_torch.index.flat import batch_flat_search
+    from repconc_tpu_torch.models.repconc_model import RepConcModel
+    from repconc_tpu_torch.train.warmup import warmup_from_embeds
+
+    t_phase = time.perf_counter()
+    config = m12_config()
+    N, D, rank, Q, topk = MSMARCO_PASSAGES, config.hidden_size, 64, 1200, 200
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    # correlated rows: a seeded rank-64 factor with falling scales, plus
+    # noise, so that OPQ has a rotation to find
+    mix = torch.randn((rank, D), generator=g, device=dev)
+    mix = mix / mix.norm(dim=1, keepdim=True) * torch.linspace(
+        3.0, 0.1, rank, device=dev)[:, None]
+
+    def rows(n):
+        return (torch.randn((n, rank), generator=g, device=dev) @ mix
+                + 0.05 * torch.randn((n, D), generator=g, device=dev))
+
+    t0 = time.perf_counter()
+    corpus = torch.empty((N, D), device=dev)
+    for start in range(0, N, 1 << 20):
+        corpus[start:start + (1 << 20)] = rows(min(1 << 20, N - start))
+    queries = rows(Q).cpu().numpy()
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    corpus_ids = np.arange(N)
+    qids = np.arange(Q)
+
+    # stage 3's search: 1200 queries, top-200, the corpus on the card
+    times = []
+    for _ in range(4):  # 1 warm-up, median of 3
+        t0 = time.perf_counter()
+        scores, ids = batch_flat_search(qids, queries, corpus_ids, corpus,
+                                        topk=topk, batch_size=Q, device=dev)
+        times.append(time.perf_counter() - t0)
+    search_ms = statistics.median(times[1:]) * 1e3
+    bound = bound_ms(N * D * 4 + Q * D * 4 + Q * topk * 12, 2.0 * Q * N * D)
+    ok, bar, gap = dense_topk_agrees(
+        torch.as_tensor(queries[:16], device=dev), corpus,
+        torch.as_tensor(scores[:16], device=dev),
+        torch.as_tensor(ids[:16], device=dev))
+    check(ok, f"the top-200 of 16 queries equals a plain fp64 top-200 "
+              f"except ties (bar {bar}, gap {gap})")
+
+    # stage 5's warm-up at the CLI's defaults on the resident corpus
+    model = RepConcModel(config).to(dev)
+    sw = Stopwatch()
+    model, codes = warmup_from_embeds(corpus, model, device=dev, stopwatch=sw)
+    M = config.MCQ_M
+    check(codes.shape == (N, M) and codes.dtype == np.uint8,
+          "codes (N, 12) uint8")
+    R = model.rotation.detach()
+    orth = float((R @ R.T - torch.eye(D, device=dev)).abs().max())
+    check(orth <= 1e-4, f"the OPQ rotation is orthogonal ({orth})")
+    train = kmeans.subsample_for_training(corpus, 1 << 18, 2022)
+    rotated = train @ R.T
+    cent = model.centroids.detach()
+    opq_mse = float(((rotated - opq._pq_reconstruct(rotated, cent)) ** 2
+                     ).sum(-1).mean())
+    t0 = time.perf_counter()
+    pq_cent, _ = kmeans.pq_fit(train, M, config.MCQ_K, iters=25, seed=SEED)
+    torch.cuda.synchronize()
+    pq_s = time.perf_counter() - t0
+    pq_mse = float(((train - opq._pq_reconstruct(train, pq_cent)) ** 2
+                    ).sum(-1).mean())
+    check(opq_mse < pq_mse, f"OPQ's reconstruction MSE ({opq_mse}) is below "
+                            f"plain PQ's ({pq_mse}) on the same subsample")
+    # one chunk's codes against the model's own PQ assignment
+    chunk = corpus[:1 << 16] @ R.T
+    check(np.array_equal(kmeans.pq_assign(chunk, cent).cpu().numpy(),
+                         codes[:1 << 16]), "codes of the first chunk")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t = sw.totals
+    emit("dense_scale", N=N, D=D, Q=Q, topk=topk, make_s=make_s,
+         search_ms=search_ms, search_ms_all=[x * 1e3 for x in times],
+         search_bound_ms=bound[0], search_bound_by=bound[1],
+         topk_bar=bar, topk_gap=gap, opq_fit_s=t["opq_fit"],
+         pq_encode_s=t["encode"], opq_mse=opq_mse, pq_mse=pq_mse,
+         plain_pq_fit_s=pq_s, rotation_orth=orth, peak_memory_gb=peak_gb,
+         phase_s=time.perf_counter() - t_phase)
+    print(f"dense_scale search_ms {search_ms:.3f} bound_ms {bound[0]:.3f} "
+          f"({bound[1]}) opq_fit_s {t['opq_fit']:.3f} pq_encode_s "
+          f"{t['encode']:.3f} peak_memory_gb {peak_gb:.3f}", flush=True)
+    print(card_line(), flush=True)
+    del corpus, model, train, rotated, chunk, pq_cent
+    torch.cuda.empty_cache()
+    return dict(search_ms=search_ms, bound=bound)
+
+
 def build_all():
     """nvcc on every source at once, one thread each (each build is its
     own process); one build line per source with ptxas's registers and
@@ -2230,7 +2757,10 @@ def main() -> int:
     ivf_scale, ivf_breakdown_ms = phase_ivf_scale(dev)
     main_path = phase_main_path(dev)
     ivf_runs = phase_ivf_main_path(dev, main_path)
-    train_run = phase_train_stage1(dev)
+    with tempfile.TemporaryDirectory() as pipeline_root:
+        front = phase_dense_front(dev, pipeline_root)
+        phase_dense_scale(dev)
+        train_run = phase_train_stage1(dev, front["warmup_dir"])
     jpq_run = phase_train_stage2(dev, train_run.pop("model"))
 
     # launches on the paths: both passes of the K1 top-k on the flat main
@@ -2287,6 +2817,10 @@ def main() -> int:
         "ivf_main_path": {name: {k: r[k] for k in ("adc_group_max",
                                                    "adc_filter")}
                           for name, r in ivf_runs.items()},
+        "dense_front_stage0": {k: front["stage0_launches"][k]
+                               for k in ("adc_group_max", "adc_filter")},
+        "dense_front_stage6": {k: front["launches"][k]
+                               for k in ("adc_group_max", "adc_filter")},
         "train_stage1": {k: train_run["launches"][k]
                          for k in ("adc_group_max", "adc_filter")},
         "train_stage2": {k: jpq_run["launches"][k]

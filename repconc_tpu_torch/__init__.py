@@ -6,18 +6,24 @@ level and nothing of repconc_tpu; `transformers` is imported lazily inside
 the few functions that need a real tokenizer.
 
 Layer map (the same names as repconc_tpu, where a module exists yet):
-  core/    config, model dirs (a numpy-only params.msgpack reader and
-           writer), device setup, phase stopwatch, logging
+  core/    config, model dirs (numpy-only readers and writers of
+           params.msgpack and safetensors), device setup, phase stopwatch,
+           logging
   models/  the BERT-family dense encoder, the RepCONC head, flax-tree
-           import and export
+           import and export, HF checkpoints, the adapter tokenizers
   quant/   PQ codebook distances, argmin and Sinkhorn-constrained encode,
            decode, the training losses
-  index/   flat top-k helpers, ADC search (K1), k-means and IVF-PQ (K2, K3)
-  eval/    batch encoding, TREC run IO, trec_eval-parity metrics, pipeline
-  train/   the training data pipeline, stage-1 RepCONC training and
-           stage-2 JPQ training (K1's two passes in every step)
-  cli/     run_repconc_eval, run_train_conc, run_train_jpq,
-           run_extract_hardneg
+  index/   dense flat search, ADC search (K1), k-means, PQ, OPQ and IVF-PQ
+           (K2, K3)
+  eval/    batch encoding (shard-resumable for a corpus), TREC run IO,
+           trec_eval-parity metrics, pipeline
+  train/   the training data pipeline, the OPQ warm-up, stage-1 RepCONC
+           (and stage-0 dense) training and stage-2 JPQ training (K1's two
+           passes in every step)
+  cli/     every stage of the pipeline but the dataset download:
+           run_train_dense, run_customize_dense, run_dense_eval,
+           run_gen_valid_set, run_warmup, run_extract_hardneg,
+           run_train_conc, run_repconc_eval, run_train_jpq
   csrc/    hand-written CUDA kernels, built with nvcc at first use (build.py)
 """
 

@@ -6,7 +6,9 @@ fp32 embeddings with the QUERY encoder, then ADC-searches with the QUERY
 encoder's centroids (the stage-2 centroid swap, :182-183). The cache layout
 is the JAX package's, so either package searches caches the other wrote:
 
-  out_corpus_dir/codes.npy, corpus_ids.npy, ivf_index.npz (--index_type ivf)
+  out_corpus_dir/codes.npy, corpus_ids.npy, ivf_index.npz (--index_type ivf),
+                encode_shards/ (the resumable encode, removed once codes.npy
+                is saved)
   out_query_dir/codes.npy (fp32 query embeddings), qids.npy, run.tsv,
                 metric.json, timings.json
 
@@ -26,7 +28,8 @@ import numpy as np
 from repconc_tpu_torch.core.checkpoint import atomic_np_save
 from repconc_tpu_torch.core.device import resolve_device
 from repconc_tpu_torch.core.profiling import Stopwatch
-from repconc_tpu_torch.eval.encode import encode_corpus, encode_queries
+from repconc_tpu_torch.eval.encode import (clear_encode_cache, encode_corpus,
+                                           encode_queries)
 from repconc_tpu_torch.eval.run_io import (
     load_beir_corpus, load_beir_qrels, load_beir_queries, load_corpus,
     load_queries, write_run_tsv,
@@ -61,7 +64,7 @@ def build_parser():
     parser.add_argument("--topk", type=int, default=1000)
     parser.add_argument("--search_batch", type=int, default=1200)
     parser.add_argument("--adapter", default=None,
-                        help="custom model adapter (ance, tct: not ported yet)")
+                        help="custom model adapter (e.g. ance, tct)")
     parser.add_argument("--index_type", default="flat", choices=["flat", "ivf"])
     parser.add_argument("--nlist", type=int, default=4096)
     parser.add_argument("--nprobe", type=int, default=64)
@@ -186,15 +189,16 @@ def main(argv=None):
                 corpus = load_corpus(args.corpus_path, tokenizer.sep_token)
             else:
                 corpus = load_beir_corpus(args.corpus_path)
+        shard_cache = os.path.join(args.out_corpus_dir, "encode_shards")
         with sw("encode_corpus"):
             codes, corpus_ids = encode_corpus(
                 corpus, model, tokenizer, args.max_seq_length,
                 batch_size=args.per_device_eval_batch_size, output="code",
-                device=device, stopwatch=sw)
+                device=device, stopwatch=sw, cache_dir=shard_cache)
         del model
-        os.makedirs(args.out_corpus_dir, exist_ok=True)
         atomic_np_save(codes_path, codes)
         atomic_np_save(cids_path, corpus_ids)
+        clear_encode_cache(shard_cache)
 
     # --- query embeddings (cached) ---
     qemb_path = os.path.join(args.out_query_dir, "codes.npy")  # reference name

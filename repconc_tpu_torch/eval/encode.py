@@ -7,19 +7,25 @@ The corpus is sorted longest-first, so bucket transitions are monotone and
 padding waste is small. Padding never changes a row's result: padded keys
 get the -1e9 additive mask.
 
+`encode_corpus(cache_dir=)` flushes the output every `shard_size` docs, so
+a killed encode resumes from its last complete shard (encode.py:366-513).
+
 Not ported yet: the producer thread that overlaps tokenization with device
-work and TokenCache (ROADMAP.md, Queue 1 item 4), and the shard-resumable
-corpus cache (item 1a). PyTorch runs eagerly, so the JAX package's padding
-of the last batch to a fixed shape (a compile-cache measure) is dropped.
+work and TokenCache (ROADMAP.md, Queue 1 item 4). PyTorch runs eagerly, so
+the JAX package's padding of the last batch to a fixed shape (a
+compile-cache measure) is dropped.
 
 Adapter tokenizer protocol: if the tokenizer's __call__ accepts
 `input_text_type`, it is passed "query"/"doc".
 """
 from __future__ import annotations
 
+import hashlib
 import inspect
+import json
 import logging
-from typing import Any, Dict, Tuple
+import os
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -111,18 +117,114 @@ def encode_texts(texts, model, tokenizer, max_seq_length: int,
     return np.concatenate(outs, axis=0)
 
 
+@torch.no_grad()
+def _params_fingerprint(model) -> str:
+    """Per tensor of the model's state dict (name, shape, fp64 sum, fp64
+    sum of squares), digested: enough to tell checkpoints apart without
+    hashing every byte. It is taken over the port's tensors and names, so
+    it differs from the JAX package's over the same weights: neither
+    package reads the other's shard dirs."""
+    h = hashlib.sha1()
+    for name, t in sorted(model.state_dict().items()):
+        a = t.detach().double()
+        # full double precision: a few tiny-lr steps change a sum below
+        # 1e-7 relative, and %.17e round-trips it
+        h.update(f"{name}|{tuple(t.shape)}|{float(a.sum()):.17e}|"
+                 f"{float((a * a).sum()):.17e}".encode())
+    return h.hexdigest()
+
+
+def _corpus_fingerprint(texts) -> str:
+    """Content hash of the (length-sorted) texts: any document edit shows,
+    also one that keeps n and the boundary ids."""
+    h = hashlib.sha1()
+    for t in texts:
+        h.update(t.encode("utf-8", "ignore"))
+        h.update(b"\x00")
+    return h.hexdigest()
+
+
+def _shard_names(cache_dir: str):
+    return [n for n in os.listdir(cache_dir)
+            if n.startswith(("shard_", ".shard_"))]
+
+
 def encode_corpus(corpus: Dict[Any, str], model, tokenizer, max_seq_length: int,
                   batch_size: int = 256, output: str = "code", device="cuda",
-                  stopwatch: Stopwatch = None) -> Tuple[np.ndarray, np.ndarray]:
-    """Encode a {docid: text} corpus longest-first (encode.py:399-450).
-    Returns (codes_or_embeds, corpus_ids)."""
+                  stopwatch: Stopwatch = None, cache_dir: Optional[str] = None,
+                  shard_size: int = 262144) -> Tuple[np.ndarray, np.ndarray]:
+    """Encode a {docid: text} corpus longest-first (encode.py:399-513).
+    Returns (codes_or_embeds, corpus_ids).
+
+    cache_dir: shard-level resume. The output is flushed to
+    cache_dir/shard_NNNNNN.npy every `shard_size` docs (tmp + rename), and a
+    rerun trusts every complete shard. meta.json (n, output, max_seq_length,
+    shard_size, the boundary ids, the params and corpus fingerprints) drops
+    every shard when any of them changes. The batch size is not in it: the
+    output does not depend on it, and rerunning with a smaller batch after
+    running out of memory must keep the finished shards."""
     corpus_ids = np.array(sorted(corpus, key=lambda k: len(corpus[k]),
                                  reverse=True))
     texts = [corpus[cid] for cid in corpus_ids]
-    enc = encode_texts(texts, model, tokenizer, max_seq_length, batch_size,
-                       output=output, input_text_type="doc", device=device,
-                       stopwatch=stopwatch, verbose=True)
-    return enc, corpus_ids
+
+    def encode(part):
+        return encode_texts(part, model, tokenizer, max_seq_length, batch_size,
+                            output=output, input_text_type="doc",
+                            device=device, stopwatch=stopwatch, verbose=True)
+
+    if cache_dir is None:
+        return encode(texts), corpus_ids
+    n = len(texts)
+    meta = {"n": n, "output": output, "max_seq_length": max_seq_length,
+            "shard_size": shard_size,
+            "first_id": str(corpus_ids[0]) if n else None,
+            "last_id": str(corpus_ids[-1]) if n else None,
+            "params_fp": _params_fingerprint(model),
+            "corpus_fp": _corpus_fingerprint(texts)}
+    os.makedirs(cache_dir, exist_ok=True)
+    meta_path = os.path.join(cache_dir, "meta.json")
+    try:
+        with open(meta_path) as f:
+            stale = json.load(f) != meta
+    except (OSError, json.JSONDecodeError):
+        stale = True
+    if stale:
+        for name in _shard_names(cache_dir):
+            os.remove(os.path.join(cache_dir, name))
+        with open(meta_path, "w") as f:
+            json.dump(meta, f)
+    if n == 0:
+        return encode(texts), corpus_ids
+    out = None  # filled shard by shard: no second copy of the whole output
+    for i, start in enumerate(range(0, n, shard_size)):
+        path = os.path.join(cache_dir, f"shard_{i:06d}.npy")
+        if os.path.exists(path):
+            enc = np.load(path)
+        else:
+            enc = encode(texts[start:start + shard_size])
+            tmp = os.path.join(cache_dir, f".shard_{i:06d}.tmp.npy")
+            np.save(tmp, enc)
+            os.replace(tmp, path)
+            logger.info("encode shard %d (%d/%d docs) flushed to %s", i,
+                        min(start + shard_size, n), n, path)
+        if out is None:
+            out = np.empty((n,) + enc.shape[1:], dtype=enc.dtype)
+        out[start:start + len(enc)] = enc
+    return out, corpus_ids
+
+
+def clear_encode_cache(cache_dir: Optional[str]) -> None:
+    """Remove a shard-resume cache once the final artifact is saved."""
+    if cache_dir is None or not os.path.isdir(cache_dir):
+        return
+    for name in _shard_names(cache_dir) + ["meta.json"]:
+        path = os.path.join(cache_dir, name)
+        if os.path.exists(path):
+            os.remove(path)
+    try:
+        os.rmdir(cache_dir)
+    except OSError:  # something else lives there: leave it
+        pass
 
 
 def encode_queries(queries: Dict[Any, str], model, tokenizer,

@@ -18,29 +18,37 @@ Precision.HIGHEST at kmeans.py:26,33-34,42-43):
   cluster (faiss's split policy), as in the JAX package.
 
 k-means++ seeding draws from an explicit torch.Generator on the device, so
-its seeds differ from jax.random's at the same seed; PQ training (`pq_fit`,
-`pq_encode_chunked`) and balanced k-means wait for the OPQ and Sinkhorn
-slices.
+its seeds differ from jax.random's at the same seed. Product quantization
+(`pq_fit`, `pq_encode_chunked`, kmeans.py:235-291) runs the M subspaces'
+k-means one after another, where the JAX package vmaps them: each is a
+few (N, K) matmuls, and a Lloyd step from given centroids is the same
+computation either way. Balanced k-means waits for ROADMAP.md Queue 1
+item 8.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from repconc_tpu_torch.core.device import resolve_device
 
 _CHUNK_ELEMS = 2 ** 27  # 512 MB fp32 per (rows, K) buffer (kmeans.py:56)
 
 
 def subsample_for_training(x, max_points: int = 65536, seed: int = 2022):
-    """Random training subsample, host numpy (opq.py:94-109): the rows
-    equal the JAX package's at the same seed (numpy's default_rng)."""
+    """Random training subsample (opq.py:94-109) of a host array or a
+    tensor: the indices come from numpy's default_rng, so the rows equal
+    the JAX package's at the same seed."""
     n = x.shape[0]
     if n <= max_points:
         return x
     rng = np.random.default_rng(seed)
     idx = rng.choice(n, size=max_points, replace=False)
     idx.sort()
+    if torch.is_tensor(x):
+        return x[torch.from_numpy(idx).to(x.device)]
     return x[idx]
 
 
@@ -140,3 +148,50 @@ def kmeans_fit(x: torch.Tensor, K: int, iters: int = 25, seed: int = 2022
     """k-means++ seeding, then Lloyd: (centroids (K, d), final mse)."""
     generator = torch.Generator(device=x.device).manual_seed(seed)
     return kmeans_fit_from(x, kmeans_plusplus_init(x, K, generator), iters)
+
+
+@torch.no_grad()
+def pq_fit(x: torch.Tensor, M: int, K: int = 256, iters: int = 25,
+           seed: int = 2022, init_centroids: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Train a product quantizer: an independent k-means in each of the M
+    subspaces of x (N, D), D % M == 0 (kmeans.py:235-261). Returns
+    (centroids (M, K, D / M), mse (M,) of each subspace's last step).
+    Without `init_centroids`, each subspace seeds by k-means++ from one
+    generator on x's device seeded with `seed`."""
+    resolve_device(x.device)  # TF32 off on a card
+    N, D = x.shape
+    xs = x.reshape(N, M, D // M)
+    generator = (torch.Generator(device=x.device).manual_seed(seed)
+                 if init_centroids is None else None)
+    cents, mses = [], []
+    for m in range(M):
+        xm = xs[:, m].contiguous()
+        init = (kmeans_plusplus_init(xm, K, generator) if generator is not None
+                else init_centroids[m].to(x.device, torch.float32))
+        c, mse = kmeans_fit_from(xm, init, iters)
+        cents.append(c)
+        mses.append(mse)
+    return torch.stack(cents), torch.stack(mses)
+
+
+def pq_assign(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """PQ codes (n, M) int64 of x (n, D) against centroids (M, K, dsub):
+    the nearest centroid of each subspace, ties to the lowest id."""
+    M = centroids.shape[0]
+    xs = x.reshape(x.shape[0], M, -1)
+    return torch.stack([assign(xs[:, m], centroids[m]) for m in range(M)], 1)
+
+
+@torch.no_grad()
+def pq_encode_chunked(x, centroids, chunk: int = 65536, device="cuda"
+                      ) -> np.ndarray:
+    """PQ codes (N, M) uint8 on the host of x (N, D), a host array or a
+    tensor, `chunk` rows at a time on `device` (kmeans.py:264-281)."""
+    dev = resolve_device(device)
+    cent = torch.as_tensor(centroids).to(dev, torch.float32)
+    out = np.empty((x.shape[0], cent.shape[0]), dtype=np.uint8)
+    for start in range(0, x.shape[0], chunk):
+        xc = torch.as_tensor(x[start:start + chunk]).to(dev, torch.float32)
+        out[start:start + chunk] = pq_assign(xc, cent).cpu().numpy()
+    return out

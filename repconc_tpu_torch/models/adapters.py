@@ -1,18 +1,71 @@
 """Tokenizer loading behind the adapter protocol (counterpart of
-repconc_tpu/models/adapters.py:31-40). `transformers` is imported inside
-the loader only: nothing else in the port needs it."""
+repconc_tpu/models/adapters.py:17-75). An adapter supplies only its
+tokenizer: its encoder variant is EncoderConfig data (models/auto.py).
+
+* ANCE lower-cases all text before tokenization (modeling_ance.py:46-54).
+* TCT-ColBERT: '[CLS] [Q] ' + query padded with [MASK] to length 36 /
+  '[CLS] [D] ' + doc, add_special_tokens=False (modeling_tct.py:49-58).
+
+`transformers` is imported inside the loaders only: nothing else in the
+port needs it. Register new adapters with @register_adapter("name").
+"""
 from __future__ import annotations
 
-# adapters of repconc_tpu/models/adapters.py:41-75 not ported yet
-_PENDING_ADAPTERS = ("ance", "tct")
+from typing import Callable, Dict
+
+_TOKENIZER_REGISTRY: Dict[str, Callable] = {}
+
+
+def register_adapter(name: str):
+    def deco(fn):
+        _TOKENIZER_REGISTRY[name] = fn
+        return fn
+    return deco
 
 
 def load_adapter_tokenizer(model_dir: str, adapter: str = None):
-    """The HF tokenizer saved in `model_dir`."""
-    if adapter in _PENDING_ADAPTERS:
-        raise NotImplementedError(
-            f"the {adapter!r} tokenizer adapter is not ported yet "
-            "(ROADMAP.md, Queue 1 item 3)")
+    """The tokenizer saved in `model_dir`, wrapped by the adapter protocol."""
+    if adapter in _TOKENIZER_REGISTRY:
+        return _TOKENIZER_REGISTRY[adapter](model_dir)
     from transformers import AutoTokenizer
 
     return AutoTokenizer.from_pretrained(model_dir)
+
+
+@register_adapter("ance")
+def _ance_tokenizer(model_dir: str):
+    from transformers import RobertaTokenizerFast
+
+    class ANCETokenizerFast(RobertaTokenizerFast):
+        """ANCE lower-cases text before tokenization."""
+
+        def __call__(self, text, *args, **kwargs):
+            if not isinstance(text, (list, tuple)):
+                raise TypeError("the ANCE tokenizer takes a list of strings, "
+                                f"got {type(text).__name__}")
+            return super().__call__([t.lower() for t in text], *args, **kwargs)
+
+    return ANCETokenizerFast.from_pretrained(model_dir)
+
+
+@register_adapter("tct")
+def _tct_tokenizer(model_dir: str):
+    from transformers import BertTokenizerFast
+
+    class TCTTokenizerFast(BertTokenizerFast):
+        """TCT query / doc markers and the fixed-36 query expansion; takes
+        the input_text_type protocol."""
+
+        def __call__(self, text, input_text_type, max_length=None,
+                     add_special_tokens=False, **kwargs):
+            if input_text_type == "query":
+                max_length = 36
+                text = ["[CLS] [Q] " + q + "[MASK]" * 36 for q in text]
+            elif input_text_type == "doc":
+                text = ["[CLS] [D] " + d for d in text]
+            else:
+                raise NotImplementedError(input_text_type)
+            return super().__call__(text, max_length=max_length,
+                                    add_special_tokens=False, **kwargs)
+
+    return TCTTokenizerFast.from_pretrained(model_dir)

@@ -22,6 +22,7 @@ from torch import nn
 from repconc_tpu_torch.core import checkpoint
 from repconc_tpu_torch.core.config import METRIC_CENTROID_COS, RepConcConfig
 from repconc_tpu_torch.core.device import resolve_device
+from repconc_tpu_torch.models.auto import load_dense_encoder
 from repconc_tpu_torch.models.transformer import DenseEncoder
 from repconc_tpu_torch.quant import codebook
 
@@ -118,3 +119,35 @@ def from_pretrained(load_dir: str, device="cuda") -> RepConcModel:
 
     config, params = checkpoint.load_model(load_dir)
     return from_jax_params(config, params).to(resolve_device(device))
+
+
+@torch.no_grad()
+def from_dense_encoder(model_dir: str, MCQ_M: int, MCQ_K: int = 256,
+                       similarity_metric: Optional[str] = None,
+                       pooling: Optional[str] = None,
+                       sk_epsilon: float = 0.003, sk_iters: int = 100,
+                       seed: int = 2022, adapter: Optional[str] = None,
+                       device="cuda") -> RepConcModel:
+    """A fresh RepCONC model around an HF dense-encoder checkpoint
+    (repconc_model.py:125-152): the checkpoint's encoder, an identity
+    rotation and N(0, 1) centroids drawn from a generator seeded with
+    `seed` (normalised per centroid for METRIC_CENTROID_COS). jax.random
+    draws other centroids at the same seed."""
+    from repconc_tpu_torch.models.auto import load_dense_encoder
+
+    dev = resolve_device(device)
+    enc_cfg, enc_state, metric = load_dense_encoder(model_dir, adapter=adapter,
+                                                    device="cpu")
+    if pooling is not None:
+        enc_cfg.pooling = pooling
+    config = RepConcConfig(encoder=enc_cfg, MCQ_M=MCQ_M, MCQ_K=MCQ_K,
+                           similarity_metric=similarity_metric or metric,
+                           sk_epsilon=sk_epsilon, sk_iters=sk_iters)
+    model = RepConcModel(config)
+    model.encoder.load_state_dict(enc_state, strict=True)
+    cent = torch.randn(model.centroids.shape,
+                       generator=torch.Generator().manual_seed(seed))
+    if config.similarity_metric == METRIC_CENTROID_COS:
+        cent = codebook.normalize_centroids(cent)
+    model.centroids.copy_(cent)
+    return model.eval().to(dev)

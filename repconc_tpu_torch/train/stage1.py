@@ -341,15 +341,12 @@ def train(model, batches: Iterator[Dict[str, np.ndarray]], hp: Stage1Hparams,
           device="cuda") -> Dict[str, Any]:
     """Run stage-1 training on `device` (stage1.py:315-432). valid_set =
     (corpus, queries, qrels), validated every eval_steps through the flat
-    quantized search (on the card, K1's two passes).
+    quantized search (on the card, K1's two passes), or with
+    hp.quantize=False (stage 0) through the dense flat search.
 
     Resumes automatically if output_dir holds a train state; an unreadable
     one restarts from step 0. Writes output_dir/checkpoint (the train
     state), best/ (on each better metric_for_best) and final/."""
-    if not hp.quantize and hp.eval_steps and valid_set is not None:
-        raise NotImplementedError(
-            "validation of dense (stage-0) training needs dense eval, which "
-            "is not ported yet (ROADMAP.md, Queue 1 item 4)")
     dev = resolve_device(device)
     model.to(dev)
     tx = make_optimizer(hp, model)
@@ -394,9 +391,10 @@ def train(model, batches: Iterator[Dict[str, np.ndarray]], hp: Stage1Hparams,
             if hp.save_steps and step % hp.save_steps == 0:
                 save_train_state(ckpt_dir, model, tx, seeds, step, best)
             corpus, queries, qrels = valid_set
-            eval_m = pipeline.evaluate_repconc_model(
-                model, tokenizer, corpus, queries, qrels, max_seq_length=512,
-                topk=10, device=dev)
+            eval_fn = (pipeline.evaluate_repconc_model if hp.quantize
+                       else pipeline.evaluate_dense_model)
+            eval_m = eval_fn(model, tokenizer, corpus, queries, qrels,
+                             max_seq_length=512, topk=10, device=dev)
             log({"step": step, **{f"eval_{k}": v for k, v in eval_m.items()}})
             score = eval_m.get(metric_for_best, 0.0)
             if score > best:

@@ -643,3 +643,110 @@ def test_stage2_step_on_card_matches_cpu(cuda, metric):
             assert float(d[~free].max()) <= 1e-6, n
         if free.any():
             assert float(d[free].max()) <= 2 * lr, n
+
+
+# -- the pipeline's front: HF weights, dense search, OPQ ----------------------
+
+
+def _tiny_hf_dir(path):
+    """An HF-format BERT dir written without transformers: a config.json
+    and the port's save_hf_checkpoint of seeded random weights."""
+    import json
+
+    from repconc_tpu_torch.core.config import EncoderConfig
+    from repconc_tpu_torch.models.auto import save_hf_checkpoint
+    from repconc_tpu_torch.models.transformer import DenseEncoder
+
+    hf = {"model_type": "bert", "vocab_size": 64, "hidden_size": 32,
+          "num_hidden_layers": 2, "num_attention_heads": 4,
+          "intermediate_size": 64, "max_position_embeddings": 64,
+          "type_vocab_size": 2, "pad_token_id": 0, "pooling": "mean"}
+    src = path / "src"
+    src.mkdir()
+    (src / "config.json").write_text(json.dumps(hf))
+    cfg = EncoderConfig(vocab_size=64, hidden_size=32, num_hidden_layers=2,
+                        num_attention_heads=4, intermediate_size=64,
+                        max_position_embeddings=64, pooling="mean")
+    g = torch.Generator().manual_seed(4)
+    state = {k: torch.randn(v.shape, generator=g) * 0.2
+             for k, v in DenseEncoder(cfg).state_dict().items()}
+    save_hf_checkpoint(str(path / "hf"), str(src), state, cfg)
+    return path / "hf", state
+
+
+def test_load_dense_encoder_to_card_matches_cpu(cuda, tmp_path):
+    from repconc_tpu_torch.models.auto import load_dense_encoder
+    from repconc_tpu_torch.models.transformer import DenseEncoder
+
+    hf_dir, state = _tiny_hf_dir(tmp_path)
+    cfg, on_card, metric = load_dense_encoder(str(hf_dir), device="cuda")
+    _, on_cpu, _ = load_dense_encoder(str(hf_dir), device="cpu")
+    assert metric == "METRIC_IP" and cfg.pooling == "mean"
+    for name, t in state.items():
+        assert on_card[name].is_cuda and torch.equal(on_card[name].cpu(), t)
+        assert torch.equal(on_cpu[name], t)
+    ids = torch.randint(5, 64, (3, 10), generator=torch.Generator().manual_seed(1))
+    mask = torch.ones_like(ids)
+    mask[1:, 7:] = 0
+    out = {}
+    for dev, st in (("cpu", on_cpu), ("cuda", on_card)):
+        enc = DenseEncoder(cfg).to(dev)
+        enc.load_state_dict(st)
+        with torch.no_grad():
+            out[dev] = enc(ids.to(dev), mask.to(dev)).cpu()
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("resident", [False, True])
+def test_flat_search_on_card_matches_cpu(cuda, resident):
+    from repconc_tpu_torch.index.flat import flat_search
+
+    rng = np.random.default_rng(6)
+    corpus = rng.normal(size=(50_000, 64)).astype(np.float32)
+    queries = rng.normal(size=(129, 64)).astype(np.float32)
+    on_card = torch.as_tensor(corpus, device=cuda) if resident else corpus
+    s_gpu, i_gpu = flat_search(queries, on_card, topk=200, chunk_size=1 << 14,
+                               device="cuda")
+    s_cpu, i_cpu = flat_search(queries, corpus, topk=200, chunk_size=1 << 14,
+                               device="cpu")
+    np.testing.assert_allclose(s_gpu, s_cpu, rtol=0, atol=1e-4)
+    exact = queries.astype(np.float64) @ corpus.T.astype(np.float64)
+    at_gpu = np.take_along_axis(exact, i_gpu, axis=1)
+    at_cpu = np.take_along_axis(exact, i_cpu, axis=1)
+    assert (np.abs(at_gpu - at_cpu)[i_gpu != i_cpu] <= 1e-4).all()
+
+
+def test_opq_step_on_card_matches_cpu(cuda):
+    """One OPQ outer iteration (rotate, Lloyd, reconstruct, Procrustes) at
+    bert-base width from the same start: cuSOLVER's SVD against LAPACK's.
+    The rotated data lies in clusters around the starting centroids, so no
+    assignment is a near-tie (checked): a near-tie would flip with either
+    device's matmul rounding and move its centroid far more than 1e-4."""
+    from repconc_tpu_torch.index.kmeans import pq_assign
+    from repconc_tpu_torch.index.opq import opq_step
+
+    rng = np.random.default_rng(9)
+    n, d, M, K = 20_000, 768, 12, 256
+    centers = rng.normal(size=(M, K, d // M))
+    labels = rng.integers(0, K, size=(n, M))
+    y = centers[np.arange(M)[None, :], labels].reshape(n, d)
+    y += 0.05 * rng.normal(size=(n, d))
+    R0 = np.linalg.qr(rng.normal(size=(d, d)))[0]
+    x = (y @ R0.T).astype(np.float32)  # x @ R0 = y
+    init = (centers + 0.01 * rng.normal(size=centers.shape)).astype(np.float32)
+    sub = torch.as_tensor(y.reshape(n, M, -1))
+    for m in range(M):  # fp64 distances of each subspace, (n, K)
+        two = torch.cdist(sub[:, m], torch.as_tensor(init[m], dtype=torch.float64)
+                          ).topk(2, dim=-1, largest=False).values ** 2
+        assert float(((two[:, 1] - two[:, 0]) / two[:, 1]).min()) > 1e-2
+    assert torch.equal(pq_assign(torch.as_tensor(y, dtype=torch.float32),
+                                 torch.as_tensor(init)),
+                       torch.as_tensor(labels))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        R, c = opq_step(torch.as_tensor(x, device=dev),
+                        torch.as_tensor(R0.astype(np.float32), device=dev),
+                        torch.as_tensor(init, device=dev), pq_iters=4)
+        out[dev] = (R.cpu(), c.cpu())
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0, atol=1e-4)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-4)

@@ -254,10 +254,13 @@ def test_cli_guards_and_unported_options(toy_model_dir, toy_data, tmp_path):
         port_cli.main(same + ["--device", "cpu"])
     base = _cli_args(toy_model_dir, paths, tmp_path / "c", tmp_path / "q")
     for extra in (["--serving", "decoded"], ["--data_parallel"],
-                  ["--token_cache_dir", str(tmp_path)],
-                  ["--adapter", "ance"]):
+                  ["--token_cache_dir", str(tmp_path)]):
         with pytest.raises(NotImplementedError):
             port_cli.main(base + extra + ["--device", "cpu"])
+    # the adapters are ported: the TCT tokenizer runs over the toy vocab
+    tct = _cli_args(toy_model_dir, paths, tmp_path / "tc", tmp_path / "tq")
+    port_cli.main(tct + ["--adapter", "tct", "--device", "cpu"])
+    assert (tmp_path / "tq" / "metric.json").exists()
 
 
 def test_trec_metrics_match_jax(tmp_path):

@@ -18,8 +18,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "repconc_tpu_torch"
 SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 NEVER = ("jax", "flax", "optax", "orbax", "msgpack",  # nowhere, not
-         "repconc_tpu")                                 # even lazily
-LAZY_ONLY = ("transformers", "safetensors")  # inside functions only
+         "safetensors", "repconc_tpu")                  # even lazily
+LAZY_ONLY = ("transformers",)  # inside functions only
 # the modules of stage-1 and stage-2 training and of the hard-negative
 # miner, each guarded by the tests below
 TRAINING_MODULES = ["repconc_tpu_torch.train", "repconc_tpu_torch.train.data",
@@ -32,6 +32,19 @@ TRAINING_MODULES = ["repconc_tpu_torch.train", "repconc_tpu_torch.train.data",
                     "repconc_tpu_torch.cli.run_train_jpq",
                     "repconc_tpu_torch.cli.run_extract_hardneg",
                     "repconc_tpu_torch.eval.run_io"]
+# the modules of the pipeline's front (stages 0 and 2-5), each guarded by the
+# tests below
+FRONT_MODULES = ["repconc_tpu_torch.core.safetensors_io",
+                 "repconc_tpu_torch.models.auto",
+                 "repconc_tpu_torch.models.adapters",
+                 "repconc_tpu_torch.index.flat",
+                 "repconc_tpu_torch.index.opq",
+                 "repconc_tpu_torch.train.warmup",
+                 "repconc_tpu_torch.cli.run_customize_dense",
+                 "repconc_tpu_torch.cli.run_dense_eval",
+                 "repconc_tpu_torch.cli.run_gen_valid_set",
+                 "repconc_tpu_torch.cli.run_train_dense",
+                 "repconc_tpu_torch.cli.run_warmup"]
 
 
 def _module_names():
@@ -96,6 +109,18 @@ def test_importing_everything_loads_no_forbidden_module():
 def test_training_module_is_guarded(name):
     """Each training module is among those the import guards walk."""
     assert name in _module_names()
+
+
+@pytest.mark.parametrize("name", FRONT_MODULES)
+def test_front_module_is_guarded(name):
+    """Each module of stages 0 and 2-5 is among those the import guards
+    walk, and importing it alone loads no transformers."""
+    assert name in _module_names()
+    code = (f"import sys, {name}\n"
+            "sys.exit(1 if 'transformers' in sys.modules else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_train_package_imports_nothing_eagerly():

@@ -568,10 +568,21 @@ def test_stage0_trains_and_its_validation_is_not_ported(toy_train, tmp_path):
     assert out["step"] == 2 and np.isfinite(out["history"][-1]["loss"])
     assert "w_conc_rmse" not in out["history"][-1]
     torch.testing.assert_close(model.centroids.detach(), before)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        stage1.train(model, iter(_port_batches(t, 2)),
-                     stage1.Stage1Hparams(quantize=False, eval_steps=1),
-                     str(tmp_path / "v"), valid_set=t["valid"], device="cpu")
+    # its validation is the dense flat search: the logged metrics equal the
+    # JAX package's evaluate_dense_model on the same weights
+    logs = []
+    stage1.train(model, iter(_port_batches(t, 2)),
+                 stage1.Stage1Hparams(quantize=False, eval_steps=2,
+                                      total_steps=2, logging_steps=0),
+                 str(tmp_path / "v"), tokenizer=t["tok"], valid_set=t["valid"],
+                 log_fn=logs.append, device="cpu")
+    from repconc_tpu.eval.pipeline import evaluate_dense_model
+    from repconc_tpu_torch.models.convert import to_jax_params
+
+    want = evaluate_dense_model(t["config"], to_jax_params(model), t["tok"],
+                                *t["valid"], max_seq_length=512, topk=10)
+    assert logs == [{"step": 2, **{f"eval_{k}": v for k, v in want.items()}}]
+    assert (tmp_path / "v" / "best" / "params.msgpack").exists()
 
 
 # -- the CLI ------------------------------------------------------------------
