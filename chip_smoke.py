@@ -35,7 +35,20 @@ shows where it stopped:
                 256 queries, on the card; launch counts read around it;
                 ranking checked against the plain scorer, 8 docs checked
                 against the CPU (proves TF32 is off), TREC run written and
-                scored
+                scored; the corpus encoded again from a TokenCache built
+                with the hash tokenizer: the cache hit, the codes equal
+                the online encode's bit for bit; docs/s and the tokenize /
+                device_encode split of both encodes
+  4b heldout_m12
+                the held-out search on the real M=12 model: its codes of
+                the regenerated 200,000-doc corpus and its 241 dev query
+                embeddings (repconc_tpu_torch/fixtures/heldout_m12/)
+                through batch_adc_search (K1's two passes, bf16 LUT),
+                top-1000; scores equal to the plain bf16-LUT top-1000 bit
+                for bit, ids but for the order of exact ties; MRR@10
+                printed beside the committed CPU fp32-LUT run's (and the
+                count of queries whose metrics differ) and the TPU run's
+                0.63838
   5 k2_check, k3_check, k4_check
                 K2 / K3 (cell-grouped IVF scan writing every score, bf16 /
                 int8 LUT) and K4 (int8 brute-force scan) against their plain
@@ -131,8 +144,11 @@ shows where it stopped:
                 step's ids against a plain top-200 over the same bf16 LUT,
                 planted positives masked, final/params.msgpack read back
                 equal, a second train call resumes and stops, an 8-query
-                step card == CPU at 100,003 codes; the median step time,
-                queries/s, the step split (encoder, search: LUT, pass 1,
+                step card == CPU at 100,003 codes (from the trained
+                weights in fp64 and from seeded weights in fp32; from the
+                trained weights in fp32 its ids are held and its gaps
+                reported beside each device's gap from the fp64 step);
+                the median step time, queries/s, the step split (encoder, search: LUT, pass 1,
                 tau, pass 2, sort; decode + loss; optimizer), peak memory,
                 validation s, K1's passes at Q=128, k=200 beside their
                 bounds
@@ -147,7 +163,9 @@ and repconc_tpu_torch; nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import logging
 import os
 import statistics
 import subprocess
@@ -634,6 +652,16 @@ class HashTokenizer:
     def __init__(self, vocab_size: int):
         self.vocab_size = vocab_size
 
+    def get_vocab(self) -> dict:
+        """What a TokenCache's fingerprint reads: the special ids and the
+        hashed word slots (without it the fingerprint is the repr, which
+        holds the object's address, and no cache would ever be hit)."""
+        vocab = {"[PAD]": self.pad_id, "[CLS]": self.cls_id,
+                 "[SEP]": self.sep_id}
+        vocab.update({f"[crc32 {j}]": j for j in
+                      range(self.first_word_id, self.vocab_size)})
+        return vocab
+
     def _word(self, w: str) -> int:
         span = self.vocab_size - self.first_word_id
         return self.first_word_id + zlib.crc32(w.lower().encode()) % span
@@ -691,13 +719,34 @@ def m12_config():
         MCQ_M=12, MCQ_K=256, similarity_metric="METRIC_IP")
 
 
+@contextlib.contextmanager
+def logged(logger):
+    """The messages `logger` emits inside the block, at INFO and above."""
+    messages = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    handler, level = Keep(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        yield messages
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
 def phase_main_path(dev):
     import copy
 
     import numpy as np
     import torch
     from repconc_tpu_torch.core.profiling import Stopwatch
-    from repconc_tpu_torch.eval.encode import encode_queries, encode_texts
+    from repconc_tpu_torch.eval import encode as encode_mod
+    from repconc_tpu_torch.eval.encode import (TokenCache, encode_corpus,
+                                               encode_queries, encode_texts)
     from repconc_tpu_torch.eval.pipeline import repconc_retrieval
     from repconc_tpu_torch.eval.run_io import write_run_tsv
     from repconc_tpu_torch.eval.trec import evaluate_run
@@ -755,6 +804,26 @@ def phase_main_path(dev):
     check(topk_agree(got_s, got_i, plain, ADC_TOL),
           "main path top-k equals the plain scorer's except near-ties")
 
+    # the corpus again from a TokenCache (run_pretokenize's layout) built
+    # with the hash tokenizer: the cache is hit and the codes equal the
+    # online encode's bit for bit
+    with tempfile.TemporaryDirectory() as tc_dir:
+        t0 = time.perf_counter()
+        TokenCache.build([corpus[c] for c in corpus_ids], tok, max_len, tc_dir)
+        cache_build_s = time.perf_counter() - t0
+        sw_cache = Stopwatch()
+        with logged(encode_mod.logger) as messages:
+            t0 = time.perf_counter()
+            cached, cached_ids = encode_corpus(
+                corpus, model, tok, max_len, batch_size=256, output="code",
+                device=dev, stopwatch=sw_cache, token_cache_dir=tc_dir)
+            cached_s = time.perf_counter() - t0
+    check(any(m.startswith("token cache hit") for m in messages)
+          and not any("online" in m for m in messages),
+          f"main path's token cache was hit ({messages})")
+    check(np.array_equal(cached_ids, corpus_ids) and np.array_equal(cached, codes),
+          "codes from the token cache equal the online encode's bit for bit")
+
     # 8 docs on the CPU and on the card: agreement to 1e-4 shows TF32 is off
     texts = [corpus[c] for c in corpus_ids[:8]]
     on_cpu = encode_texts(texts, cpu_model, tok, max_len, device="cpu")
@@ -766,6 +835,10 @@ def phase_main_path(dev):
     emit("main_path", launches=launches, encode_corpus_s=t["encode_corpus"],
          docs_per_s=len(corpus) / t["encode_corpus"],
          tokenize_s=t["tokenize"], device_encode_s=t["device_encode"],
+         token_cache_build_s=cache_build_s, cached_encode_corpus_s=cached_s,
+         cached_docs_per_s=len(corpus) / cached_s,
+         cached_tokenize_s=sw_cache.totals["tokenize"],
+         cached_device_encode_s=sw_cache.totals["device_encode"],
          encode_queries_s=t["encode_queries"], search_s=t["search"],
          search_queries_per_s=len(queries) / t["search"], mrr_at_10=mrr10,
          recall_at_1000=metrics["recall"]["Recall@1000"],
@@ -774,6 +847,65 @@ def phase_main_path(dev):
     return dict(launches=launches, codes=codes, corpus_ids=corpus_ids,
                 query_ids=query_ids, q_embeds=q_embeds, qrels=qrels,
                 centroids=model.centroids.detach().cpu().numpy(), plain=plain)
+
+
+def phase_heldout_m12(dev):
+    """The held-out check's search on the card: the real M=12 model's codes
+    of the regenerated 200,000-doc corpus and its 241 dev queries
+    (repconc_tpu_torch/fixtures/heldout_m12/, cut from the port's CPU eval
+    run) through batch_adc_search, K1's two passes with the bf16 LUT, top-
+    1000; held to the plain top-1000 over the same bf16 LUT on the card,
+    then scored and set beside the CPU's fp32-LUT run and the TPU's."""
+    import numpy as np
+    import torch
+    from repconc_tpu_torch.fixtures import heldout
+    from repconc_tpu_torch.index.adc import build_lut, plain_topk
+    from repconc_tpu_torch.index.cuda_adc import CudaADCIndex
+
+    fx = heldout.load()
+    N, M = fx["codes"].shape
+    Q, topk = len(fx["qids"]), heldout.TOPK
+    index = CudaADCIndex(fx["codes"], fx["centroids"], device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    scores, docids = heldout.search(fx, device=dev, searcher=index)
+    search_s = time.perf_counter() - t0
+    launches = launch_counts()
+    check(launches["adc_group_max"] > 0 and launches["adc_filter"] > 0,
+          f"heldout_m12 launched both passes of the K1 top-k ({launches})")
+    with tempfile.TemporaryDirectory() as tmp:
+        metric = heldout.score_run(fx, scores, docids,
+                                   os.path.join(tmp, "run.tsv"))
+    check(scores.shape == (Q, topk) and bool(np.isfinite(scores).all())
+          and len(metric["perquery"]) == Q,
+          "heldout_m12: 1000 finite scores for each of the 241 queries")
+
+    # the plain top-1000 over the same bf16 LUT, on the card
+    codes = torch.as_tensor(fx["codes"], device=dev)
+    lut = build_lut(torch.as_tensor(fx["query_embeds"], device=dev),
+                    torch.as_tensor(fx["centroids"], device=dev)
+                    ).to(torch.bfloat16)
+    plain_s, plain_i = plain_topk(lut, codes, N, topk)
+    row_of = {d: j for j, d in enumerate(fx["corpus_ids"])}
+    got_i = torch.tensor([[row_of[d] for d in r] for r in docids], device=dev)
+    check(same_topk(torch.as_tensor(scores, device=dev), got_i, plain_s,
+                    plain_i),
+          "heldout_m12: scores equal the plain bf16-LUT top-1000 bit for bit, "
+          "ids but for the order of exact ties")
+    q = torch.as_tensor(fx["query_embeds"], device=dev)
+    search_ms = time_ms(lambda: index.search_device(q, topk))
+    vs_cpu = heldout.compare(metric, fx["metric"])
+    emit("heldout_m12", N=N, M=M, Q=Q, topk=topk, launches=launches,
+         search_s=search_s, search_ms=search_ms,
+         mrr_at_10=metric["mrr"]["MRR@10"],
+         ndcg_at_10=metric["ndcg"]["NDCG@10"],
+         cpu_fp32_mrr_at_10=vs_cpu["reference_mrr_at_10"],
+         cpu_fp32_ndcg_at_10=vs_cpu["reference_ndcg_at_10"],
+         queries_differ_from_cpu=vs_cpu["queries_differ"],
+         mrr10_differ_from_cpu=vs_cpu["mrr10_differ"],
+         tpu_mrr_at_10=heldout.TPU_MRR10,
+         delta_mrr_at_10_vs_tpu=metric["mrr"]["MRR@10"] - heldout.TPU_MRR10)
+    return dict(launches=launches)
 
 
 def ivf_bound(work_cell, qidx, Qz: int, Lpad: int, M: int, K: int,
@@ -1979,6 +2111,7 @@ def phase_train_stage2(dev, stage1_model):
                                                   adc_topk, search_plan)
     from repconc_tpu_torch.models import repconc_model
     from repconc_tpu_torch.models.convert import to_jax_params
+    from repconc_tpu_torch.quant import codebook
     from repconc_tpu_torch.train import stage1, stage2
     from repconc_tpu_torch.train.data import (QueryCollator, QueryDataset,
                                               batch_iterator)
@@ -2104,47 +2237,94 @@ def phase_train_stage2(dev, stage1_model):
         del gmax, s, i, s_ref, i_ref
 
         # an 8-query step, card (the kernel) against CPU (the passes' plain
-        # versions) at N = 100,003, no dropout
+        # versions) at N = 100,003, no dropout: from the trained weights in
+        # fp32 and in fp64, and from seeded weights (as train_stage1's
+        # step) in fp32. Each run's ids are held equal except near-ties.
+        # The trained start's fp64 step and the seeded start's fp32 step
+        # are held to the step bars. The trained start's fp32 gaps are
+        # reported beside each device's gap from the CPU's fp64 step: its
+        # softmax over the negatives is spread (top weight 0.14-0.46 against
+        # about 1 from seeded weights) over logits up to about 400, so fp32
+        # rounding alone puts each device 4-5e-5 of a gradient's max from
+        # the exact step, and the two devices up to 1.27e-4 apart, while in
+        # fp64 they agree within 1e-12 (PERF.md, section 6)
         n_small = 100_003
         small = next(batches(8, SEED + 9))
         small["pos_docids"] %= n_small  # judged docs among the first n_small
         pos = small["query_positives"]
         small["query_positives"] = np.where(pos >= 0, pos % n_small, pos)
-        step_out = {}
-        for where, d, use in (("cpu", "cpu", True), ("card", dev, None)):
-            m = repconc_model.from_pretrained(init_dir, device=d)
-            cc = codes[:n_small].to(d)
-            hp_small = stage2.Stage2Hparams(**dict(hp.__dict__,
-                                                   use_pallas_search=use))
-            bb = {key: torch.as_tensor(v).to(d) for key, v in small.items()}
-            _, _, a = stage2.loss_fn(m, hp_small, bb, cc, n_small,
-                                     stage2.takes_kernel(use, d))
-            tx = stage1.make_optimizer(hp_small.as_stage1(), m)
-            metrics = stage2.make_train_step(m, hp_small, tx, cc)(bb)
-            step_out[where] = (
-                {key: float(v) for key, v in metrics.items()},
-                {n: p.grad.cpu() for n, p in m.named_parameters()},
-                {n: v.cpu() for n, v in m.state_dict().items()},
-                a["neg_pids"].cpu(), a["q_embeds"].cpu())
-            del m, tx, cc
-        (*_, i_cpu, q_cpu), (*_, i_card, q_card) = (step_out["cpu"],
-                                                    step_out["card"])
-        lut_cpu = build_lut(q_cpu, cent0.cpu()).to(torch.bfloat16)
-        lut_card = build_lut(q_card, cent0.cpu()).to(torch.bfloat16)
-        scores = score_codes_reference(lut_cpu, codes[:n_small].cpu())
-        kth = torch.topk(scores, k, dim=1).values[:, -1:]
-        near = M * float((lut_card.float() - lut_cpu.float()).abs().max())
-        differ = torch.zeros_like(scores, dtype=torch.bool)
-        differ.scatter_(1, i_cpu, True)
-        differ ^= torch.zeros_like(differ).scatter_(1, i_card, True)
-        ids_differ = int(differ.sum()) // 2
-        check(bool(((scores - kth).abs()[differ] <= near + 1e-6).all()),
-              f"8-query step: ids card == CPU except near-ties "
-              f"({ids_differ} differ; bar {near:.3g})")
-        gaps = step_gaps(step_out["cpu"][:3], step_out["card"][:3],
-                         hp.learning_rate, hp.centroid_learning_rate)
-        check_step_gaps(gaps, "8-query step")
-        del step_out, scores, differ
+        seeded_dir = os.path.join(tmp, "seeded")
+        repconc_model.save_pretrained(seeded_dir, repconc_model.init_random_(
+            repconc_model.RepConcModel(config),
+            torch.Generator().manual_seed(SEED + 4), std=0.02))
+        small_gaps, ids_differ, near, steps_by, softmax = {}, {}, {}, {}, {}
+        for start, start_dir, dtype in (
+                ("trained", init_dir, torch.float32),
+                ("trained_fp64", init_dir, torch.float64),
+                ("seeded", seeded_dir, torch.float32)):
+            step_out = {}
+            for where, d, use in (("cpu", "cpu", True), ("card", dev, None)):
+                m = repconc_model.from_pretrained(start_dir, device=d).to(dtype)
+                c_start = m.centroids.detach().cpu().clone()
+                cc = codes[:n_small].to(d)
+                hp_small = stage2.Stage2Hparams(**dict(hp.__dict__,
+                                                       use_pallas_search=use))
+                bb = {key: torch.as_tensor(v).to(d) for key, v in small.items()}
+                _, _, a = stage2.loss_fn(m, hp_small, bb, cc, n_small,
+                                         stage2.takes_kernel(use, d))
+                tx = stage1.make_optimizer(hp_small.as_stage1(), m)
+                metrics = stage2.make_train_step(m, hp_small, tx, cc)(bb)
+                step_out[where] = (
+                    {key: float(v) for key, v in metrics.items()},
+                    {n: p.grad.cpu() for n, p in m.named_parameters()},
+                    {n: v.cpu() for n, v in m.state_dict().items()},
+                    a["neg_pids"].cpu(), a["q_embeds"].cpu(), c_start)
+                del m, tx, cc
+            (*_, i_cpu, q_cpu, c0), (*_, i_card, q_card, _) = (
+                step_out["cpu"], step_out["card"])
+            lut_cpu = build_lut(q_cpu, c0).to(torch.bfloat16)
+            lut_card = build_lut(q_card, c0).to(torch.bfloat16)
+            scores = score_codes_reference(lut_cpu, codes[:n_small].cpu())
+            kth = torch.topk(scores, k, dim=1).values[:, -1:]
+            near[start] = M * float(
+                (lut_card.float() - lut_cpu.float()).abs().max())
+            differ = torch.zeros_like(scores, dtype=torch.bool)
+            differ.scatter_(1, i_cpu, True)
+            differ ^= torch.zeros_like(differ).scatter_(1, i_card, True)
+            ids_differ[start] = int(differ.sum()) // 2
+            # the CPU step's softmax over [positive; negatives]: its spread
+            # and the logits' size set how far rounding moves the gradient
+            dec = lambda i: codebook.decode(codes[:n_small].cpu()[i], c0)  # noqa: E731
+            logits = torch.cat([
+                (q_cpu * dec(torch.as_tensor(small["pos_docids"]).long())
+                 ).sum(-1, keepdim=True),
+                torch.einsum("bd,bkd->bk", q_cpu, dec(i_cpu.reshape(-1))
+                             .reshape(*i_cpu.shape, -1))], 1) / hp.temperature
+            logits[:, 1:][stage2.positive_mask(i_cpu, torch.as_tensor(
+                small["query_positives"]))] = -float("inf")
+            softmax[start] = {
+                "max_abs_logit": float(logits[logits.isfinite()].abs().max()),
+                "top_weight": torch.softmax(logits, 1).max(1).values.tolist()}
+            check(bool(((scores - kth).abs()[differ]
+                        <= near[start] + 1e-6).all()),
+                  f"8-query step from {start} weights: ids card == CPU except "
+                  f"near-ties ({ids_differ[start]} differ; bar "
+                  f"{near[start]:.3g})")
+            small_gaps[start] = step_gaps(
+                step_out["cpu"][:3], step_out["card"][:3], hp.learning_rate,
+                hp.centroid_learning_rate)
+            if start.startswith("trained"):
+                steps_by[start] = {w: o[:3] for w, o in step_out.items()}
+            del step_out, scores, differ
+        check_step_gaps(small_gaps["trained_fp64"],
+                        "8-query step from trained weights in fp64")
+        check_step_gaps(small_gaps["seeded"], "8-query step from seeded weights")
+        exact = steps_by.pop("trained_fp64")["cpu"]
+        trained_vs_exact = {
+            where: step_gaps(exact, out, hp.learning_rate,
+                             hp.centroid_learning_rate)
+            for where, out in steps_by.pop("trained").items()}
+        del exact
 
         # timings on the trained model, dropout on: whole steps (host
         # clock around each, synchronised), the split, peak memory
@@ -2185,7 +2365,9 @@ def phase_train_stage2(dev, stage1_model):
              "candidates_mean": float(count.float().mean())},
          masked_positives=masked,
          step_card_vs_cpu={"n_docs": n_small, "ids_differ": ids_differ,
-                           "near_tie_bar": near, **gaps},
+                           "near_tie_bar": near, **small_gaps,
+                           "trained_fp32_vs_cpu_fp64": trained_vs_exact,
+                           "softmax": softmax},
          phase_s=phase_s)
     print(f"train_stage2 step_ms {step_ms:.3f} queries_per_s "
           f"{batch_size / step_ms * 1e3:.1f} (median of steps 2-{steps})",
@@ -2756,6 +2938,7 @@ def main() -> int:
     full_scan = phase_full_scan(dev)
     ivf_scale, ivf_breakdown_ms = phase_ivf_scale(dev)
     main_path = phase_main_path(dev)
+    held_out = phase_heldout_m12(dev)
     ivf_runs = phase_ivf_main_path(dev, main_path)
     with tempfile.TemporaryDirectory() as pipeline_root:
         front = phase_dense_front(dev, pipeline_root)
@@ -2764,20 +2947,25 @@ def main() -> int:
     jpq_run = phase_train_stage2(dev, train_run.pop("model"))
 
     # launches on the paths: both passes of the K1 top-k on the flat main
-    # path (phase 4); both passes of the IVF top-k on the IVF path, with
-    # K2's scan body for the bf16 LUT and K3's for the int8 LUT (phase 7).
+    # path (phase 4) and the held-out search (phase 4b); both passes of the
+    # IVF top-k on the IVF path, with K2's scan body for the bf16 LUT and
+    # K3's for the int8 LUT (phase 7).
     # K1's score-returning scan, K2 / K3 writing every score, and K4 are on
     # no path: the passes took the place of the first two, and K4 has none
     # in the JAX package either. Their launches there must stay 0; k1_check,
     # k2_check, k3_check and k4_check hold them against their plain versions
-    on_paths = [main_path["launches"], *ivf_runs.values(),
+    on_paths = [main_path["launches"], held_out["launches"],
+                *ivf_runs.values(),
                 *(r["launches"] for r in ivf_scale.values()),
                 jpq_run["launches"]]
     launches = {
         "adc_scan": (sum(r["adc_scan"] for r in on_paths), None),
-        "adc_group_max": (main_path["launches"]["adc_group_max"],
-                          "main_path"),
-        "adc_filter": (main_path["launches"]["adc_filter"], "main_path"),
+        "adc_group_max": (main_path["launches"]["adc_group_max"]
+                          + held_out["launches"]["adc_group_max"],
+                          "main_path + heldout_m12"),
+        "adc_filter": (main_path["launches"]["adc_filter"]
+                       + held_out["launches"]["adc_filter"],
+                       "main_path + heldout_m12"),
         "ivf_scan_bf16": (sum(r["ivf_scan_bf16"] for r in on_paths), None),
         "ivf_scan_i8": (sum(r["ivf_scan_i8"] for r in on_paths), None),
         "adc_scan_i8": (sum(r["adc_scan_i8"] for r in on_paths), None),
@@ -2857,6 +3045,9 @@ def main() -> int:
             entry["library_call"] = t["library_call"]
             entry["library_max_abs_err"] = t["library_max_abs_err"]
         if name in ("adc_group_max", "adc_filter"):
+            entry["launches_by_path"] = {
+                "main_path": main_path["launches"][name],
+                "heldout_m12": held_out["launches"][name]}
             entry["launches_elsewhere"] = {
                 k: v for k, v in elsewhere.items()}
             p = "pass1" if name == "adc_group_max" else "pass2"

@@ -17,9 +17,9 @@ raises). The artifacts are the JAX CLI's, each skip-if-exists:
   out_query_dir/query_embeds.npy, qids.npy (--save_query_embed), run.tsv,
                 metric.json
 
-The corpus embeddings feed the OPQ warm-up (run_warmup). --data_parallel
-and --token_cache_dir raise NotImplementedError naming their ROADMAP.md
-item.
+The corpus embeddings feed the OPQ warm-up (run_warmup).
+--token_cache_dir reads a run_pretokenize cache. --data_parallel raises
+NotImplementedError naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -62,7 +62,8 @@ def build_parser():
     parser.add_argument("--pooling", default=None)
     parser.add_argument("--per_device_eval_batch_size", type=int, default=256)
     parser.add_argument("--token_cache_dir", default=None,
-                        help="not ported yet: raises")
+                        help="pretokenized corpus (run_pretokenize); a "
+                             "missing or stale cache tokenizes online")
     parser.add_argument("--relevance_level", type=int, default=1,
                         help="minimum qrel grade counted relevant for the "
                              "binary metrics")
@@ -107,9 +108,6 @@ def main(argv=None):
     if args.data_parallel:
         raise NotImplementedError("--data_parallel is not ported yet "
                                   "(ROADMAP.md, Queue 1 item 10 (multi-GPU))")
-    if args.token_cache_dir is not None:
-        raise NotImplementedError("--token_cache_dir is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 4 (TokenCache))")
     from repconc_tpu_torch.models.adapters import load_adapter_tokenizer
 
     device = resolve_device(args.device)
@@ -133,7 +131,7 @@ def main(argv=None):
             corpus_loader(args.corpus_path), model, tokenizer,
             args.max_seq_length, batch_size=args.per_device_eval_batch_size,
             output="continuous_embedding", device=device,
-            cache_dir=shard_cache)
+            cache_dir=shard_cache, token_cache_dir=args.token_cache_dir)
         if args.save_corpus_embed:
             atomic_np_save(emb_path, corpus_embeds)
             atomic_np_save(ids_path, corpus_ids)

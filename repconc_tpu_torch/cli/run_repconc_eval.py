@@ -57,7 +57,8 @@ def build_parser():
                         choices=["msmarco", "beir"])
     parser.add_argument("--per_device_eval_batch_size", type=int, default=256)
     parser.add_argument("--token_cache_dir", default=None,
-                        help="not ported yet: raises")
+                        help="pretokenized corpus (run_pretokenize); a "
+                             "missing or stale cache tokenizes online")
     parser.add_argument("--relevance_level", type=int, default=1,
                         help="minimum qrel grade counted relevant for the "
                              "binary metrics")
@@ -90,8 +91,6 @@ def check_ported(args) -> None:
         (args.serving in ("decoded", "decoded_int8"), f"--serving {args.serving}",
          "Queue 1 item 8 (decoded residency)"),
         (args.data_parallel, "--data_parallel", "Queue 1 item 10 (multi-GPU)"),
-        (args.token_cache_dir is not None, "--token_cache_dir",
-         "Queue 1 item 4 (TokenCache)"),
     ]
     for hit, flag, item in pending:
         if hit:
@@ -194,7 +193,8 @@ def main(argv=None):
             codes, corpus_ids = encode_corpus(
                 corpus, model, tokenizer, args.max_seq_length,
                 batch_size=args.per_device_eval_batch_size, output="code",
-                device=device, stopwatch=sw, cache_dir=shard_cache)
+                device=device, stopwatch=sw, cache_dir=shard_cache,
+                token_cache_dir=args.token_cache_dir)
         del model
         atomic_np_save(codes_path, codes)
         atomic_np_save(cids_path, corpus_ids)

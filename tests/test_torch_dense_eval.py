@@ -206,8 +206,7 @@ def test_cli_metric_and_pooling_overrides_match_jax(toy, tmp_path):
     assert not np.allclose(np.linalg.norm(got, axis=1), 1.0)
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--data_parallel"], "item 10"), (["--token_cache_dir", "x"], "item 4")])
+@pytest.mark.parametrize("extra,item", [(["--data_parallel"], "item 10")])
 def test_cli_unported_options_raise(toy, tmp_path, extra, item):
     with pytest.raises(NotImplementedError, match=item):
         port_cli.main(_cli_args(toy[0], tmp_path) + extra + ["--device", "cpu"])

@@ -253,8 +253,7 @@ def test_cli_guards_and_unported_options(toy_model_dir, toy_data, tmp_path):
     with pytest.raises(SystemExit):
         port_cli.main(same + ["--device", "cpu"])
     base = _cli_args(toy_model_dir, paths, tmp_path / "c", tmp_path / "q")
-    for extra in (["--serving", "decoded"], ["--data_parallel"],
-                  ["--token_cache_dir", str(tmp_path)]):
+    for extra in (["--serving", "decoded"], ["--data_parallel"]):
         with pytest.raises(NotImplementedError):
             port_cli.main(base + extra + ["--device", "cpu"])
     # the adapters are ported: the TCT tokenizer runs over the toy vocab

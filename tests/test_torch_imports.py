@@ -44,7 +44,8 @@ FRONT_MODULES = ["repconc_tpu_torch.core.safetensors_io",
                  "repconc_tpu_torch.cli.run_dense_eval",
                  "repconc_tpu_torch.cli.run_gen_valid_set",
                  "repconc_tpu_torch.cli.run_train_dense",
-                 "repconc_tpu_torch.cli.run_warmup"]
+                 "repconc_tpu_torch.cli.run_warmup",
+                 "repconc_tpu_torch.cli.run_pretokenize"]
 
 
 def _module_names():
