@@ -77,6 +77,13 @@ shows where it stopped:
                 breakdown holds the fused top-k to K2 / K3 + regroup_topk on
                 all 1200 queries, times each step of both, and reads the
                 peak device memory of one search of each
+  6b ivf_balanced
+                build_ivf(balanced=True) (Sinkhorn-constrained coarse
+                k-means) over ivf_scale's codes at nlist 4096: Lpad, spill
+                and build s beside the unbalanced build's; 1200 queries at
+                nprobe=64, top-1000, through the two IVF passes, held as
+                ivf_scale holds its searches (re-sums, probed cells, the
+                exact top-1000 of 64 queries), and the search's breakdown
   7 ivf_main_path
                 the CLI's own IVF branch (run_repconc_eval.search_ivf) on
                 phase 4's codes and query embeddings, nlist=64, through the
@@ -84,6 +91,24 @@ shows where it stopped:
                 the ranking equals the flat ranking except near-ties; the
                 int8 LUT run and nprobe=8 recall; every run's scores
                 re-summed as in phase 6; TREC run written and scored
+  7a ivf_decoded
+                decoded residency: on ivf_main_path's index, the bf16 and
+                int8 stores' searches on the card held to the same torch
+                ops on the CPU (int8 bit-equal, bf16 within 1e-5 of the
+                largest score; ids but for ties), the spill merged by K1;
+                at MS MARCO's size, the int8 store of ivf_scale's index (or
+                the balanced one, whichever fits), timed per 1200-query
+                batch beside the ADC search, with its bytes and peak memory
+  7a' run_ivf_sweep
+                the sweep CLI through its main() on ivf_main_path's codes,
+                queries and codebook (nlist 64, nprobes 8-64, top-100,
+                bf16 and int8 LUTs): recall never falls, and reaches 0.99
+                (bf16) or 0.9 (int8) at full probe
+  7a'' bf16_main_path
+                main_path's model with bf16 activations: 128 docs on the
+                card and on the CPU against the CPU's fp32 embeddings (the
+                card's gap at most twice the CPU's), and the 8,192 longest
+                docs encoded in fp32 and in bf16 on the card: docs/s
   7b dense_front
                 stages 0 and 2-5 of the pipeline chained at the M=12
                 checkpoint's encoder widths (768 hidden, 12 layers, vocab
@@ -127,7 +152,10 @@ shows where it stopped:
                 final/params.msgpack read back equal to the model, a second
                 train call resumes and stops at once, one step's
                 constrained codes card == CPU except near-ties, an 8-query
-                step (argmin codes) card == CPU; the median step time,
+                step (argmin codes) card == CPU, the same step with bf16
+                activations on the card and the CPU against the CPU's fp32
+                step (the card's gradient gap at most twice the CPU's);
+                the median step time,
                 training queries/s
                 and docs/s, the step split into encoder, Sinkhorn, decode +
                 loss and optimizer (CUDA events), peak memory, validation s
@@ -146,12 +174,22 @@ shows where it stopped:
                 equal, a second train call resumes and stops, an 8-query
                 step card == CPU at 100,003 codes (from the trained
                 weights in fp64 and from seeded weights in fp32; from the
-                trained weights in fp32 its ids are held and its gaps
-                reported beside each device's gap from the fp64 step);
+                trained weights in fp32 its ids are held, and each
+                device's gaps to the fp64 step: the card's gradients,
+                key biases and parameters at most twice the CPU's plus
+                1e-6, its loss and grad_norm at most twice the CPU's
+                gradient gap plus 1e-6);
                 the median step time, queries/s, the step split (encoder, search: LUT, pass 1,
                 tau, pass 2, sort; decode + loss; optimizer), peak memory,
                 validation s, K1's passes at Q=128, k=200 beside their
                 bounds
+  9b stage1_scale
+                the reference's production stage-1 step (bert-base, M=48,
+                4096 queries x 12 docs, GradCache chunks of 128) in bf16
+                through repconc_tpu_torch/recipes/bench_stage1_scale.py:
+                1 warm-up step, 2 timed (the second split into its
+                parts); finite losses and gradients; step ms against its
+                bf16 bound (the fp32 bound beside it), docs/s, peak memory
   10 kernels    one JSON line per the port's kernel table
 
 The last lines are the kernels line, the card's `nvidia-smi` name and power
@@ -846,7 +884,8 @@ def phase_main_path(dev):
          tf32=torch.backends.cuda.matmul.allow_tf32)
     return dict(launches=launches, codes=codes, corpus_ids=corpus_ids,
                 query_ids=query_ids, q_embeds=q_embeds, qrels=qrels,
-                centroids=model.centroids.detach().cpu().numpy(), plain=plain)
+                centroids=model.centroids.detach().cpu().numpy(), plain=plain,
+                cpu_model=cpu_model, texts=[corpus[c] for c in corpus_ids])
 
 
 def phase_heldout_m12(dev):
@@ -1359,20 +1398,79 @@ def topk_overlap(i_a, i_b) -> float:
     return float((i_a[:, :, None] == i_b[:, None, :]).any(-1).float().mean())
 
 
-def phase_ivf_scale(dev):
-    """IVF-PQ serving at MS MARCO's passage count with the CLI's defaults."""
+def hold_ivf_search(index, codes, cent, queries, s, i, nprobe: int,
+                    lut_dtype: str, what: str, exact_rows: int = 64) -> float:
+    """ivf_scale's checks of one IVF search's top-k (s, i) over `codes`:
+    finite sorted scores; (a) each equals the plain re-sum of its doc's
+    codes with the search's own LUT (resum_check); (b) each id lies in a
+    probed cell of its query or in the spill; (c) for `exact_rows` queries
+    (bf16 LUT), the top-k is the exact top-k of their probed cells and the
+    spill, except near-ties. Returns (a)'s max abs error."""
     import torch
-    from repconc_tpu_torch.core.profiling import Stopwatch
     from repconc_tpu_torch.index.adc import build_lut, score_codes_reference
-    from repconc_tpu_torch.index.ivf import (build_ivf_from_codes, probe_cells,
-                                             serve_search)
+    from repconc_tpu_torch.index.ivf import probe_cells
 
-    M, K, D, Q, topk, nlist, nprobe = 12, 256, 768, 1200, 1000, 4096, 64
+    dev = codes.device
+    N, topk = codes.shape[0], s.shape[1]
+    check(s.shape == i.shape and s.shape[0] == queries.shape[0]
+          and bool(torch.isfinite(s).all()), f"{what}: finite (Q, topk) scores")
+    check(bool((s[:, :-1] >= s[:, 1:]).all()), f"{what}: sorted scores")
+    spill_ids = torch.as_tensor(index.spill_ids, device=dev).long()
+    err = resum_check(queries, cent, codes, s, i, spill_ids, lut_dtype, what)
+    cell_ids = torch.as_tensor(index.cell_ids, device=dev).long()
+    cell_of = torch.full((N,), -1, dtype=torch.long, device=dev)
+    valid = cell_ids >= 0
+    cell_of[cell_ids[valid]] = torch.arange(
+        index.nlist, device=dev)[:, None].expand_as(cell_ids)[valid]
+    in_spill = torch.zeros(N, dtype=torch.bool, device=dev)
+    in_spill[spill_ids] = True
+    coarse = torch.as_tensor(index.coarse_centroids, device=dev)
+    cells = probe_cells(queries, coarse, nprobe)
+    probed = (cell_of[i][:, :, None] == cells[:, None, :]).any(-1)
+    check(bool((probed | in_spill[i]).all()),
+          f"{what} (b): ids in a probed cell or the spill")
+    del probed
+    if exact_rows:
+        nq = exact_rows
+        lut = build_lut(queries[:nq], cent).to(torch.bfloat16).contiguous()
+        plain = score_codes_reference(lut, codes)   # (nq, N)
+        allowed = in_spill[None, :].repeat(nq, 1)
+        members = cell_ids[cells[:nq]].reshape(nq, -1)
+        rows = torch.arange(nq, device=dev)[:, None].expand_as(members)
+        ok = members >= 0
+        allowed[rows[ok], members[ok]] = True
+        plain = torch.where(allowed, plain, -torch.inf)
+        check(topk_agree(s[:nq], i[:nq], plain, ADC_TOL),
+              f"{what} (c): top-{topk} of {nq} queries equals the exact "
+              f"top-{topk} of their probed cells and the spill, except "
+              f"near-ties")
+        del plain, allowed, members, rows, ok
+    del cell_ids, cell_of, in_spill
+    return err
+
+
+def ivf_scale_inputs(dev):
+    """ivf_scale's data: 8,841,823 random M=12 codes, the codebook and
+    1200 queries, drawn on the card from one seeded generator."""
+    import torch
+
+    M, K, D, Q = 12, 256, 768, 1200
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     codes = torch.randint(0, K, (MSMARCO_PASSAGES, M), generator=g, device=dev,
                           dtype=torch.uint8)
     cent = torch.randn((M, K, D // M), generator=g, device=dev)
     queries = torch.randn((Q, D), generator=g, device=dev)
+    return codes, cent, queries
+
+
+def phase_ivf_scale(dev):
+    """IVF-PQ serving at MS MARCO's passage count with the CLI's defaults."""
+    import torch
+    from repconc_tpu_torch.core.profiling import Stopwatch
+    from repconc_tpu_torch.index.ivf import build_ivf_from_codes, serve_search
+
+    M, K, D, Q, topk, nlist, nprobe = 12, 256, 768, 1200, 1000, 4096, 64
+    codes, cent, queries = ivf_scale_inputs(dev)
     cent_np, q_np = cent.cpu().numpy(), queries.cpu().numpy()
     sw = Stopwatch()
     t = time.perf_counter()
@@ -1401,45 +1499,14 @@ def phase_ivf_scale(dev):
         searches[lut_dtype] = (torch.as_tensor(s, device=dev),
                                torch.as_tensor(i, device=dev).long(),
                                times, launch_counts())
-    spill_ids = torch.as_tensor(index.spill_ids, device=dev).long()
-    cell_ids = torch.as_tensor(index.cell_ids, device=dev).long()
-    cell_of = torch.full((MSMARCO_PASSAGES,), -1, dtype=torch.long, device=dev)
-    valid = cell_ids >= 0
-    cell_of[cell_ids[valid]] = torch.arange(
-        nlist, device=dev)[:, None].expand_as(cell_ids)[valid]
-    in_spill = torch.zeros(MSMARCO_PASSAGES, dtype=torch.bool, device=dev)
-    in_spill[spill_ids] = True
-    coarse = torch.as_tensor(index.coarse_centroids, device=dev)
-    cells = probe_cells(queries, coarse, nprobe)
-    errs_a = {}
-    for lut_dtype, (s, i, _, _) in searches.items():
-        what = f"ivf {lut_dtype}"
-        check(tuple(s.shape) == (Q, topk) and bool(torch.isfinite(s).all()),
-              f"{what}: finite (Q, topk) scores")
-        check(bool((s[:, :-1] >= s[:, 1:]).all()), f"{what}: sorted scores")
-        # (a) every returned score is the plain re-sum of that doc's codes
-        errs_a[lut_dtype] = resum_check(queries, cent, codes, s, i, spill_ids,
-                                        lut_dtype, what)
-        # (b) every returned id lies in a probed cell of its query or the spill
-        probed = (cell_of[i][:, :, None] == cells[:, None, :]).any(-1)
-        check(bool((probed | in_spill[i]).all()),
-              f"{what} (b): ids in a probed cell or the spill")
-        del probed
-    s, i, _, _ = searches["bf16"]
-    lut = build_lut(queries, cent).to(torch.bfloat16)
-    # (c) 64 queries: the exact top-1000 of their probed cells and the spill
-    nq = 64
-    plain = score_codes_reference(lut[:nq].contiguous(), codes)   # (64, N)
-    allowed = in_spill[None, :].repeat(nq, 1)
-    members = cell_ids[cells[:nq]].reshape(nq, -1)
-    rows = torch.arange(nq, device=dev)[:, None].expand_as(members)
-    ok = members >= 0
-    allowed[rows[ok], members[ok]] = True
-    plain = torch.where(allowed, plain, -torch.inf)
-    check(topk_agree(s[:nq], i[:nq], plain, ADC_TOL),
-          "ivf (c): top-1000 of 64 queries equals the exact top-1000 of "
-          "their probed cells and the spill, except near-ties")
-    del plain, allowed, members, rows, ok
+    check(all(tuple(v[0].shape) == (Q, topk) for v in searches.values()),
+          "ivf: (Q, topk) results")
+    errs_a = {lut_dtype: hold_ivf_search(index, codes, cent, queries, s, i,
+                                         nprobe, lut_dtype, f"ivf {lut_dtype}",
+                                         exact_rows=64 if lut_dtype == "bf16"
+                                         else 0)
+              for lut_dtype, (s, i, _, _) in searches.items()}
+    s, i = searches["bf16"][:2]
     # (d) the int8 LUT's top-100 overlaps the bf16 top-100
     s8, i8 = searches["int8"][:2]
     overlap = topk_overlap(i8[:, :100], i[:, :100])
@@ -1454,10 +1521,349 @@ def phase_ivf_scale(dev):
          nlist=nlist, nprobe=nprobe, Lpad=index.Lpad,
          spill=len(index.spill_ids), searches=out, rescore_max_abs_err=errs_a,
          int8_top100_overlap=overlap, breakdown_ms=breakdown)
-    del searches, s, i, s8, i8, codes, cell_ids, cell_of, valid, in_spill, lut
-    del index
+    del searches, s, i, s8, i8, codes
     torch.cuda.empty_cache()
-    return out, breakdown
+    return out, breakdown, index
+
+
+def same_ranking(s_a, i_a, s_b, i_b, tol: float) -> bool:
+    """Two top-k results (numpy): scores rank for rank within tol, and a
+    doc in one row but not the other only where its score lies within tol
+    of that row's last score (a near-tie at the cut; tol 0: an exact
+    tie). Pad slots (-inf, id -1) count as equal."""
+    import numpy as np
+
+    same = s_a == s_b  # also equal infinities (pad slots)
+    if s_a.shape != s_b.shape or not np.all(
+            same | (np.abs(s_a - s_b) <= tol)):
+        return False
+    for r in np.nonzero((i_a != i_b).any(1))[0]:
+        a, b = list(i_a[r]), list(i_b[r])
+        for d in set(a) ^ set(b):
+            s_d = s_a[r, a.index(d)] if d in a else s_b[r, b.index(d)]
+            if abs(s_d - s_a[r, -1]) > tol:
+                return False
+    return True
+
+
+def phase_ivf_balanced(dev, unbalanced):
+    """build_ivf(balanced=True) over ivf_scale's 8,841,823 codes at nlist
+    4096: Lpad, spill and build s beside ivf_scale's unbalanced build of
+    the same codes; then 1200 queries at nprobe=64, top-1000, through
+    ivf_topk (the two IVF passes, bf16 LUT), held as ivf_scale holds its
+    searches, and the search's breakdown."""
+    import torch
+    from repconc_tpu_torch.core.profiling import Stopwatch
+    from repconc_tpu_torch.index.ivf import build_ivf_from_codes, serve_search
+
+    Q, topk, nlist, nprobe = 1200, 1000, 4096, 64
+    codes, cent, queries = ivf_scale_inputs(dev)
+    q_np = queries.cpu().numpy()
+    sw = Stopwatch()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    index = build_ivf_from_codes(codes, cent.cpu().numpy(), nlist=nlist,
+                                 balanced=True, device=dev, stopwatch=sw)
+    build_s = time.perf_counter() - t
+    build_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(index.ntotal == MSMARCO_PASSAGES,
+          "ivf_balanced: every doc in a cell or the spill")
+    emit("ivf_balanced_build", N=MSMARCO_PASSAGES, nlist=nlist,
+         Lpad=index.Lpad, spill=len(index.spill_ids), build_s=build_s,
+         unbalanced_Lpad=unbalanced.Lpad,
+         unbalanced_spill=len(unbalanced.spill_ids))
+    times = []
+    for _ in range(3):
+        reset_launches()
+        t = time.perf_counter()
+        s, i = serve_search(index, q_np, topk=topk, nprobe=nprobe, device=dev)
+        times.append(time.perf_counter() - t)
+    launches = launch_counts()
+    check(launches["ivf_group_max_bf16"] > 0 and launches["ivf_filter_bf16"] > 0
+          and launches["ivf_scan_bf16"] == 0,
+          f"ivf_balanced searched through the two IVF passes ({launches})")
+    s = torch.as_tensor(s, device=dev)
+    i = torch.as_tensor(i, device=dev).long()
+    check(tuple(s.shape) == (Q, topk), "ivf_balanced: (Q, topk) results")
+    err = hold_ivf_search(index, codes, cent, queries, s, i, nprobe, "bf16",
+                          "ivf_balanced")
+    breakdown = ivf_breakdown(index, queries, nprobe, topk)
+    N = MSMARCO_PASSAGES
+    emit("ivf_balanced", N=N, nlist=nlist, nprobe=nprobe, Q=Q, topk=topk,
+         Lpad=index.Lpad, spill=len(index.spill_ids),
+         spill_share=len(index.spill_ids) / N, build_s=build_s,
+         kmeans_s=sw.totals["ivf_kmeans"], assign_s=sw.totals["ivf_assign"],
+         fill_s=sw.totals["ivf_fill"], build_peak_memory_gb=build_peak_gb,
+         cell_size_max=int(index.cell_sizes.max()),
+         unbalanced={"Lpad": unbalanced.Lpad,
+                     "spill": len(unbalanced.spill_ids),
+                     "spill_share": len(unbalanced.spill_ids) / N},
+         first_search_s=times[0], search_s=times[1:],
+         queries_per_s=Q / statistics.median(times[1:]), launches=launches,
+         rescore_max_abs_err=err, breakdown_ms=breakdown)
+    print(f"ivf_balanced Lpad {index.Lpad} spill {len(index.spill_ids)} "
+          f"build_s {build_s:.3f} (unbalanced Lpad {unbalanced.Lpad} spill "
+          f"{len(unbalanced.spill_ids)}); search_ms "
+          f"{breakdown['bf16']['step_ms']['whole_search']:.3f} (spill "
+          f"{breakdown['bf16']['step_ms']['spill_topk_merge']:.3f})",
+          flush=True)
+    del codes, cent, queries, s, i
+    torch.cuda.empty_cache()
+    return dict(index=index, launches=launches, breakdown=breakdown)
+
+
+def phase_ivf_decoded(dev, main, main_index, scale_index, balanced_index):
+    """Decoded residency. On ivf_main_path's index (phase 4's codes and
+    query embeddings, nlist 64): bf16 and int8 stores, each search on the
+    card held to the same torch ops on the CPU, int8 bit-equal (exact
+    integer sums), bf16 within 1e-5 of the largest score (fp32 sums in
+    another order), ids but for ties; the spill merged by K1. At MS MARCO's
+    size: the int8 store of ivf_scale's index, or of the balanced one when
+    that does not fit (decoded_bytes against the free memory), timed per
+    1200-query batch beside the ADC search of the same index, with the
+    store's bytes, build s and peak memory."""
+    import numpy as np
+    import torch
+    from repconc_tpu_torch.index.cuda_ivf import QT_G, CudaIVFIndex
+
+    q, topk = main["q_embeds"], 1000
+    card = CudaIVFIndex(main_index, device=dev)
+    cpu = CudaIVFIndex(main_index, device="cpu")
+    held = {}
+    reset_launches()
+    for serving in ("decoded", "decoded_int8"):
+        for nprobe in (64, 8):
+            s_c, i_c = card.search(q, topk=topk, nprobe=nprobe,
+                                   serving=serving)
+            s_p, i_p = cpu.search(q, topk=topk, nprobe=nprobe,
+                                  serving=serving)
+            tol = 0.0 if serving == "decoded_int8" else 1e-5 * float(
+                np.abs(s_p[np.isfinite(s_p)]).max())
+            check(same_ranking(s_c, i_c, s_p, i_p, tol),
+                  f"ivf_decoded main path {serving} nprobe={nprobe}: card == "
+                  f"CPU (scores within {tol}, ids but for ties)")
+            held[f"{serving}_nprobe{nprobe}"] = {
+                "max_abs_diff": float(np.abs(np.where(
+                    s_c == s_p, 0.0, s_c - s_p)).max()), "tol": tol,
+                "rows_with_other_ids": int((i_c != i_p).any(1).sum())}
+    launches = launch_counts()
+    if len(main_index.spill_ids):
+        check(launches["adc_group_max"] > 0 and launches["adc_filter"] > 0,
+              f"the decoded searches merged the spill with K1 ({launches})")
+    store_bytes_main = {d: card.decoded_bytes(d) for d in ("bf16", "int8")}
+    del card, cpu
+
+    codes, cent, queries = ivf_scale_inputs(dev)
+    del codes
+    nprobe, Q = 64, queries.shape[0]
+    chosen, searcher = None, None
+    for name, idx in (("ivf_scale", scale_index),
+                      ("ivf_balanced", balanced_index)):
+        idx.set_centroids(cent.cpu().numpy())
+        searcher = CudaIVFIndex(idx, device=dev)
+        tiles = Q * nprobe // QT_G + idx.nlist  # at most this many
+        workspace = (tiles * QT_G * idx.Lpad * 4 * 2
+                     + Q * nprobe * idx.Lpad * 16)
+        free = torch.cuda.mem_get_info(dev)[0]
+        if searcher.decoded_bytes("int8") + workspace < 0.9 * free:
+            chosen = name
+            break
+        del searcher
+        torch.cuda.empty_cache()
+    check(chosen is not None, "an int8 decoded store fits at MS MARCO's size")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    searcher.decoded_store("int8")
+    torch.cuda.synchronize()
+    store_s = time.perf_counter() - t
+    reset_launches()
+    s_d, i_d = searcher.search_device(queries, topk, nprobe,
+                                      serving="decoded_int8")
+    s_a, i_a = searcher.search_device(queries, topk, nprobe)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    scale_launches = launch_counts()
+    check(tuple(s_d.shape) == (Q, topk) and bool(torch.isfinite(s_d).all())
+          and bool((s_d[:, :-1] >= s_d[:, 1:]).all()),
+          "ivf_decoded at scale: finite sorted (Q, topk) scores")
+    check(bool((i_d.sort(1).values[:, 1:] != i_d.sort(1).values[:, :-1])
+               .all()), "ivf_decoded at scale: distinct ids per query")
+    overlap = topk_overlap(i_d[:, :100], i_a[:, :100])
+    check(overlap >= 0.8, f"ivf_decoded at scale: int8 decoded top-100 "
+                          f"overlaps the ADC top-100 ({overlap})")
+    decoded_ms = time_ms(lambda: searcher.search_device(
+        queries, topk, nprobe, serving="decoded_int8"), reps=3, warmup=1)
+    adc_ms = time_ms(lambda: searcher.search_device(queries, topk, nprobe),
+                     reps=5, warmup=1)
+    idx = searcher.host
+    emit("ivf_decoded", main_path={"nlist": main_index.nlist,
+                                   "Lpad": main_index.Lpad,
+                                   "spill": len(main_index.spill_ids),
+                                   "queries": len(q), "held": held,
+                                   "store_bytes": store_bytes_main,
+                                   "launches": launches},
+         at_scale={"index": chosen, "N": MSMARCO_PASSAGES, "nlist": idx.nlist,
+                   "Lpad": idx.Lpad, "spill": len(idx.spill_ids), "Q": Q,
+                   "nprobe": nprobe, "topk": topk,
+                   "store_bytes_int8": searcher.decoded_bytes("int8"),
+                   "store_bytes_bf16": searcher.decoded_bytes("bf16"),
+                   "store_build_s": store_s, "peak_memory_gb": peak_gb,
+                   "decoded_int8_ms": decoded_ms, "adc_bf16_ms": adc_ms,
+                   "top100_overlap_with_adc": overlap,
+                   "launches": scale_launches})
+    print(f"ivf_decoded at {chosen} (Lpad {idx.Lpad}): decoded_int8 "
+          f"{decoded_ms:.3f} ms, adc {adc_ms:.3f} ms per {Q}-query batch; "
+          f"store {searcher.decoded_bytes('int8') / 1e9:.3f} GB, peak "
+          f"{peak_gb:.3f} GB", flush=True)
+    del searcher, s_d, i_d, s_a, i_a, queries, cent
+    torch.cuda.empty_cache()
+    return dict(launches=launches, scale_launches=scale_launches)
+
+
+def phase_ivf_sweep(dev, main):
+    """run_ivf_sweep through its main() on ivf_main_path's artifacts
+    (phase 4's codes, query embeddings and codebook), nlist 64, nprobes
+    8,16,32,64, top-100, --use_pallas with the bf16 and the int8 LUT: the
+    exact baseline is K1's two passes, each nprobe K2's or K3's passes and
+    K1 for the spill. Recall must not fall as nprobe grows, and at full
+    probe (64 of 64 cells) it is at least 0.99 with the bf16 LUT (the
+    baseline's own LUT) and 0.9 with the int8 one."""
+    import numpy as np
+    from repconc_tpu_torch.cli import run_ivf_sweep
+    from repconc_tpu_torch.core.checkpoint import save_model
+
+    model = main["cpu_model"]
+    D = model.config.hidden_size
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "codes.npy"), main["codes"])
+        np.save(os.path.join(tmp, "q.npy"), main["q_embeds"])
+        save_model(os.path.join(tmp, "model"), model.config,
+                   {"centroids": main["centroids"],
+                    "rotation": np.eye(D, dtype=np.float32)})
+        for lut in ("bf16", "int8"):
+            path = os.path.join(tmp, f"sweep_{lut}.json")
+            reset_launches()
+            t = time.perf_counter()
+            run_ivf_sweep.main([
+                "--codes_path", os.path.join(tmp, "codes.npy"),
+                "--query_embed_path", os.path.join(tmp, "q.npy"),
+                "--model_name_or_path", os.path.join(tmp, "model"),
+                "--nlist", "64", "--nprobes", "8,16,32,64", "--topk", "100",
+                "--use_pallas", "--lut_dtype", lut, "--out", path,
+                "--device", str(dev)])
+            wall_s = time.perf_counter() - t
+            launches = launch_counts()
+            with open(path) as f:
+                data = json.load(f)
+            recalls = [r["recall_vs_exact@100"] for r in data["results"]]
+            kind = "bf16" if lut == "bf16" else "i8"
+            check(launches["adc_group_max"] > 0 and launches["adc_filter"] > 0
+                  and launches[f"ivf_group_max_{kind}"] > 0
+                  and launches[f"ivf_filter_{kind}"] > 0,
+                  f"run_ivf_sweep {lut}: K1's passes (baseline) and the IVF "
+                  f"passes ran ({launches})")
+            check(all(b >= a for a, b in zip(recalls, recalls[1:])),
+                  f"run_ivf_sweep {lut}: recall does not fall ({recalls})")
+            floor = 0.99 if lut == "bf16" else 0.9
+            check(recalls[-1] >= floor, f"run_ivf_sweep {lut}: recall at "
+                                        f"full probe {recalls[-1]} >= {floor}")
+            out[lut] = dict(sweep=data, wall_s=wall_s, launches=launches)
+    emit("run_ivf_sweep", **out)
+    return {lut: r["launches"] for lut, r in out.items()}
+
+
+def phase_bf16_main_path(dev, main):
+    """bf16 activations on main_path's model (the M=12 config, seeded
+    weights): 128 of its docs, every 512th of the longest-first corpus (so
+    every length), encoded in bf16 on the card and on the CPU, each
+    against the CPU's fp32 embeddings: the card's bf16 gap is at most
+    twice the CPU's. Then its 8,192 longest docs encoded to codes on the
+    card in fp32 and in bf16: docs/s of each."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repconc_tpu_torch.eval.encode import encode_texts
+    from repconc_tpu_torch.models.repconc_model import RepConcModel
+
+    cpu32 = main["cpu_model"]
+    config = cpu32.config
+    cfg16 = dataclasses.replace(config, encoder=dataclasses.replace(
+        config.encoder, dtype="bfloat16"))
+    cpu16 = RepConcModel(cfg16)
+    cpu16.load_state_dict(cpu32.state_dict())
+    tok = HashTokenizer(config.encoder.vocab_size)
+    texts, max_len = main["texts"], 128
+    sample = texts[::512][:128]
+    emb = {}
+    for name, m, d in (("cpu32", cpu32, "cpu"), ("cpu16", cpu16, "cpu"),
+                       ("card16", copy.deepcopy(cpu16).to(dev), dev)):
+        emb[name] = encode_texts(sample, m, tok, max_len, device=d)
+    cpu_gap = float(np.abs(emb["cpu16"] - emb["cpu32"]).max())
+    card_gap = float(np.abs(emb["card16"] - emb["cpu32"]).max())
+    card_cpu16 = float(np.abs(emb["card16"] - emb["cpu16"]).max())
+    check(emb["card16"].dtype == np.float32 and 0.0 < cpu_gap
+          and card_gap <= 2 * cpu_gap,
+          f"bf16 encode: the card's gap to fp32 {card_gap} <= 2 x the CPU's "
+          f"{cpu_gap}")
+    n = min(8_192, len(texts))
+    timed = {}
+    for name, m in (("fp32", copy.deepcopy(cpu32).to(dev)),
+                    ("bf16", copy.deepcopy(cpu16).to(dev))):
+        encode_texts(texts[:512], m, tok, max_len, output="code", device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        codes = encode_texts(texts[:n], m, tok, max_len, output="code",
+                             device=dev)
+        torch.cuda.synchronize()
+        timed[name] = time.perf_counter() - t
+        check(codes.shape == (n, config.MCQ_M), f"bf16 encode: {name} codes")
+        del m
+    torch.cuda.empty_cache()
+    emit("bf16_main_path", docs_compared=len(sample),
+         cpu_bf16_gap_to_fp32=cpu_gap, card_bf16_gap_to_fp32=card_gap,
+         card_bf16_gap_to_cpu_bf16=card_cpu16, ratio=card_gap / cpu_gap,
+         timed_docs=n, fp32_s=timed["fp32"], bf16_s=timed["bf16"],
+         fp32_docs_per_s=n / timed["fp32"], bf16_docs_per_s=n / timed["bf16"])
+    print(f"bf16_main_path docs_per_s fp32 {n / timed['fp32']:.1f} bf16 "
+          f"{n / timed['bf16']:.1f}; gap to fp32 card {card_gap:.4g} cpu "
+          f"{cpu_gap:.4g}", flush=True)
+
+
+def phase_stage1_scale(dev):
+    """The reference's production stage-1 step in bf16 at full width:
+    bert-base, M=48, 4096 queries x (1 positive + 11 negatives) = 49,152
+    docs, GradCache chunks of 128, through
+    repconc_tpu_torch/recipes/bench_stage1_scale.py (its batch and
+    hyperparameters are the JAX bench's): 1 warm-up step and 2 timed, the
+    second of them the split step; finite losses and gradients; step ms
+    against the bf16 bound, the fp32 bound beside it (not run), docs/s,
+    peak memory."""
+    import math
+
+    import torch
+    from repconc_tpu_torch.recipes.bench_stage1_scale import run
+
+    out = run(steps=2, device=dev)
+    model = out.pop("model")
+    check(all(math.isfinite(v) for v in out["metrics"].values()),
+          f"stage1_scale: finite losses ({out['metrics']})")
+    check(all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()
+              if p.grad is not None), "stage1_scale: finite gradients")
+    del model
+    torch.cuda.empty_cache()
+    emit("stage1_scale", **out)
+    print(f"stage1_scale step_ms {out['step_ms']:.1f} (bound "
+          f"{out['bound_ms']:.1f} bf16, {out['bound_fp32_ms']:.1f} fp32) "
+          f"docs_per_s {out['docs_per_s']:.1f} peak_memory_gb "
+          f"{out['peak_memory_gb']:.3f}", flush=True)
+    print("stage1_scale split_ms " + " ".join(
+        f"{k} {v:.3f}" for k, v in out["split_ms"].items()), flush=True)
+    print(card_line(), flush=True)
+    return out
 
 
 def ivf_breakdown(index, queries, nprobe: int, topk: int):
@@ -1561,7 +1967,8 @@ def ivf_breakdown(index, queries, nprobe: int, topk: int):
             k2_bound_ms=ivf_bound(work_cell, qidx, Q + 1, Lpad, M, K, b, G))
         del gmax, tau, cand, s, i, lut_z, scales_z, tiles
         torch.cuda.empty_cache()
-    out["spill_steps"] = spill_breakdown(ivf.spill, queries, topk)
+    out["spill_steps"] = (None if ivf.spill is None else spill_breakdown(
+        ivf.spill, queries, min(topk, ivf.spill.N)))
     del ivf
     torch.cuda.empty_cache()
     return out
@@ -1578,6 +1985,10 @@ def spill_breakdown(spill, queries, topk: int):
     lut = build_lut(queries, spill.centroids).to(torch.bfloat16).contiguous()
     N = spill.N
     G, cap = search_plan(N, topk)
+    if G is None:  # fewer than k groups: adc_topk runs pass 2 alone
+        return dict(adc_topk=time_ms(lambda: adc_topk(lut, spill.codes, N,
+                                                      topk), reps=3, warmup=1),
+                    N=N, groups=None, cap=cap)
     gmax = adc_group_max(lut, spill.codes, N, G)
     tau = torch.topk(gmax, topk, dim=1).values[:, -1].contiguous()
     cand = adc_filter(lut, spill.codes, N, tau, cap, gmax)
@@ -1680,7 +2091,7 @@ def phase_ivf_main_path(dev, main):
                for k, v in runs.items()},
          recall_at_1000_vs_flat_nprobe8=recall8,
          int8_top100_overlap=int8_overlap, rescore_max_abs_err=resum_err)
-    return {k: v["launches"] for k, v in runs.items()}
+    return {k: v["launches"] for k, v in runs.items()}, index
 
 
 def write_training_files(root: str, corpus, queries, qrels):
@@ -1695,60 +2106,6 @@ def write_training_files(root: str, corpus, queries, qrels):
         f.writelines(f"{q} 0 {d} {r}\n" for q, ds in qrels.items()
                      for d, r in ds.items())
     return paths
-
-
-def step_split_ms(model, hp, tx, batch, seeds, reps: int = 3):
-    """One stage-1 step cut into its parts, each timed with CUDA events
-    (median of `reps` steps): the encoder's forward and backward, the
-    constrained encode (Sinkhorn), decode + loss (forward and backward) and
-    the optimizer. The parts are train/stage1.py::loss_fn's, with the
-    encoder's backward run from the gradients of its outputs."""
-    import torch
-    from repconc_tpu_torch.quant import codebook, losses
-    from repconc_tpu_torch.train import stage1
-
-    config = model.config
-    parts = {k: [] for k in ("encoder_fwd_bwd", "constrained_encode",
-                             "decode_loss", "optimizer", "step")}
-    for _ in range(reps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-        tx.zero_grad()
-        ev[0].record()
-        enc = {k: stage1.encode_chunked(model, batch[f"{k}_input_ids"],
-                                        batch[f"{k}_attention_mask"],
-                                        hp.cache_chunk_size, seeds)
-               for k in ("query", "pos", "neg")}
-        doc = torch.cat([enc["pos"], enc["neg"]], 0)
-        ev[1].record()
-        codes = codebook.encode(doc, model.centroids, use_constraint=True,
-                                sk_epsilon=config.sk_epsilon,
-                                sk_iters=config.sk_iters)
-        ev[2].record()
-        q_leaf = enc["query"].detach().requires_grad_()
-        d_leaf = doc.detach().requires_grad_()
-        quantized = codebook.decode(codes, model.centroids)
-        doc_ids = torch.cat([batch["pos_docids"], batch["neg_docids"]])
-        mask = (losses.false_negative_mask(batch["qids"], doc_ids,
-                                           batch["query_positives"])
-                | losses.duplicate_negative_mask(batch["qids"], doc_ids))
-        loss = losses.contrastive_loss(
-            q_leaf, losses.straight_through(quantized, d_leaf), mask,
-            config.MCQ_M) + hp.mse_loss_weight * losses.mse_loss(quantized,
-                                                                 d_leaf)
-        loss.backward()
-        ev[3].record()
-        torch.autograd.backward([enc["query"], doc], [q_leaf.grad, d_leaf.grad])
-        ev[4].record()
-        tx.step()
-        ev[5].record()
-        ev[5].synchronize()
-        t = [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
-        parts["encoder_fwd_bwd"].append(t[0] + t[3])
-        parts["constrained_encode"].append(t[1])
-        parts["decode_loss"].append(t[2])
-        parts["optimizer"].append(t[4])
-        parts["step"].append(ev[0].elapsed_time(ev[5]))
-    return {k: statistics.median(v) for k, v in parts.items()}
 
 
 def step_gaps(cpu, card, lr: float, centroid_lr: float):
@@ -1793,6 +2150,67 @@ def step_gaps(cpu, card, lr: float, centroid_lr: float):
     return out
 
 
+def bf16_step_gaps(seeded, batch, hp, dev):
+    """One stage-1 step of `seeded` with bf16 activations on the card and
+    on the CPU, each against the CPU's fp32 step of the same weights and
+    batch (dropout off): the card's gradient gap (the largest |difference|
+    over every array, after the step's clip) is at most twice the CPU's.
+    The loss gaps are reported: one scalar, a mean over the batch, whose
+    rounding errors partly cancel, so the ratio of two of them is noise
+    (PERF.md, section 6).
+    The three steps quantize alike: the card's codes are recorded and
+    handed to both CPU steps, so that a code at a near-tie cannot flip
+    between them and move the step by more than rounding."""
+    import copy
+    import dataclasses
+
+    import torch
+    from repconc_tpu_torch.models.repconc_model import RepConcModel
+    from repconc_tpu_torch.quant import codebook
+    from repconc_tpu_torch.train import stage1
+
+    config = seeded.config
+    m16 = RepConcModel(dataclasses.replace(config, encoder=dataclasses.replace(
+        config.encoder, dtype="bfloat16")))
+    m16.load_state_dict(seeded.state_dict())
+    real, recorded, out = codebook.encode, [], {}
+
+    def record(*args, **kwargs):
+        recorded.append(real(*args, **kwargs))
+        return recorded[-1]
+
+    try:
+        for name, src, d in (("card16", m16, dev), ("cpu16", m16, "cpu"),
+                             ("cpu32", seeded, "cpu")):
+            m = copy.deepcopy(src).to(d)
+            codebook.encode = (record if not recorded else
+                               lambda x, *a, **k: recorded[0].to(x.device))
+            tx = stage1.make_optimizer(hp, m)
+            metrics = stage1.make_train_step(m, hp, tx)(
+                {k: torch.as_tensor(v).to(d) for k, v in batch.items()})
+            out[name] = (float(metrics["loss"]),
+                         {n: p.grad.cpu() for n, p in m.named_parameters()
+                          if p.grad is not None})
+            del m, tx
+    finally:
+        codebook.encode = real
+    ref_loss, ref_grads = out["cpu32"]
+
+    def gaps(name):
+        loss, grads = out[name]
+        return abs(loss - ref_loss), max(float((g - ref_grads[n]).abs().max())
+                                         for n, g in grads.items())
+
+    (card_loss, card_grad), (cpu_loss, cpu_grad) = gaps("card16"), gaps("cpu16")
+    res = {"card_loss_gap": card_loss, "cpu_loss_gap": cpu_loss,
+           "card_grad_gap": card_grad, "cpu_grad_gap": cpu_grad,
+           "losses": {k: v[0] for k, v in out.items()}}
+    check(0.0 < cpu_grad and card_grad <= 2 * cpu_grad,
+          f"bf16 8-query step: the card's gap to the fp32 step within twice "
+          f"the CPU's ({res})")
+    return res
+
+
 def check_step_gaps(gaps, what: str) -> None:
     """The bars of a card-vs-CPU step: metrics 1e-5 relative, gradients
     1e-4 of each array's max (key biases 1e-6 of the largest), parameters
@@ -1823,6 +2241,7 @@ def phase_train_stage1(dev, warmup_dir: str):
     from repconc_tpu_torch.models.repconc_model import (
         RepConcModel, from_pretrained, init_random_)
     from repconc_tpu_torch.quant import codebook, sinkhorn
+    from repconc_tpu_torch.recipes.bench_stage1_scale import step_split_ms
     from repconc_tpu_torch.train import stage1
     from repconc_tpu_torch.train.data import (FinetuneCollator, QDRelDataset,
                                               batch_iterator)
@@ -1956,6 +2375,7 @@ def phase_train_stage1(dev, warmup_dir: str):
         gaps = step_gaps(step_out["cpu"], step_out["card"], hp.learning_rate,
                          hp.centroid_learning_rate)
         check_step_gaps(gaps, "8-query step")
+        bf16_gaps = bf16_step_gaps(seeded, small, hp_small, dev)
         del step_out, seeded
 
         # timings on the trained model, the full batch, dropout on
@@ -1968,7 +2388,7 @@ def phase_train_stage1(dev, warmup_dir: str):
         step_fn(full, seeds)
         torch.cuda.synchronize()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        split = step_split_ms(model, hp, tx, full, seeds)
+        split = step_split_ms(model, hp, tx, full, seeds, reps=3)
         docs_sk = torch.randn((2 * batch_size, config.hidden_size),
                               generator=torch.Generator().manual_seed(SEED),
                               ).to(dev)
@@ -1992,7 +2412,7 @@ def phase_train_stage1(dev, warmup_dir: str):
          validation_docs=len(valid[0]), validation_queries=len(valid[1]),
          codes_tied_share=float(tied.float().mean()),
          step_card_vs_cpu=gaps, warmup_argmin_flips=len(flips),
-         warmup_argmin_flip_gap=flip_gap)
+         warmup_argmin_flip_gap=flip_gap, bf16_step=bf16_gaps)
     print(f"train_stage1 step_ms {step_ms:.3f} queries_per_s "
           f"{batch_size / step_ms * 1e3:.1f} docs_per_s "
           f"{docs / step_ms * 1e3:.1f}", flush=True)
@@ -2241,13 +2661,17 @@ def phase_train_stage2(dev, stage1_model):
         # fp32 and in fp64, and from seeded weights (as train_stage1's
         # step) in fp32. Each run's ids are held equal except near-ties.
         # The trained start's fp64 step and the seeded start's fp32 step
-        # are held to the step bars. The trained start's fp32 gaps are
-        # reported beside each device's gap from the CPU's fp64 step: its
-        # softmax over the negatives is spread (top weight 0.14-0.46 against
-        # about 1 from seeded weights) over logits up to about 400, so fp32
-        # rounding alone puts each device 4-5e-5 of a gradient's max from
-        # the exact step, and the two devices up to 1.27e-4 apart, while in
-        # fp64 they agree within 1e-12 (PERF.md, section 6)
+        # are held to the step bars. The trained start's fp32 step is held
+        # against the CPU's fp64 step instead of against the other device:
+        # its softmax over the negatives is spread (top weight 0.04-0.46
+        # against about 1 from seeded weights) over logits up to about 440,
+        # so fp32 rounding alone puts each device up to 1.6e-4 of a
+        # gradient's max from the exact step, and the two devices up to
+        # 1.47e-4 apart, while in fp64 they agree within 1e-12 (PERF.md,
+        # section 6). The card's fp32 gaps to the fp64 step (gradients, key
+        # biases, parameters) are at most twice the CPU's plus 1e-6, its
+        # metrics at most twice the CPU's gradient gap plus 1e-6, and its
+        # near-zero-gradient elements within 2 lr
         n_small = 100_003
         small = next(batches(8, SEED + 9))
         small["pos_docids"] %= n_small  # judged docs among the first n_small
@@ -2325,6 +2749,23 @@ def phase_train_stage2(dev, stage1_model):
                              hp.centroid_learning_rate)
             for where, out in steps_by.pop("trained").items()}
         del exact
+        # the loss and grad_norm are two scalars whose rounding errors
+        # partly cancel, so twice the CPU's own metric gap is noise (4.5e-6
+        # against 4.6e-7 in one run, 7.6e-7 against 1.3e-5 in another):
+        # they are held to twice the CPU's gradient gap, the step's
+        # rounding scale, plus 1e-6
+        card_t, cpu_t = trained_vs_exact["card"], trained_vs_exact["cpu"]
+        held = ("grad_rel", "key_bias_grad_rel", "param_abs")
+        trained_ratio = {k: card_t[k] / cpu_t[k] if cpu_t[k] else None
+                         for k in held + ("metrics_rel",)}
+        check(all(card_t[k] <= 2 * cpu_t[k] + 1e-6 for k in held)
+              and card_t["metrics_rel"] <= 2 * cpu_t["grad_rel"] + 1e-6
+              and card_t["near_zero_grad_param_lr"] <= 2.0,
+              f"8-query fp32 step from trained weights: the card's gaps to "
+              f"the fp64 step within twice the CPU's plus 1e-6 "
+              f"({ {k: (card_t[k], cpu_t[k]) for k in held} }), its "
+              f"metrics {card_t['metrics_rel']} within twice the CPU's "
+              f"gradient gap plus 1e-6")
 
         # timings on the trained model, dropout on: whole steps (host
         # clock around each, synchronised), the split, peak memory
@@ -2367,6 +2808,7 @@ def phase_train_stage2(dev, stage1_model):
          step_card_vs_cpu={"n_docs": n_small, "ids_differ": ids_differ,
                            "near_tie_bar": near, **small_gaps,
                            "trained_fp32_vs_cpu_fp64": trained_vs_exact,
+                           "trained_fp32_card_over_cpu": trained_ratio,
                            "softmax": softmax},
          phase_s=phase_s)
     print(f"train_stage2 step_ms {step_ms:.3f} queries_per_s "
@@ -2936,15 +3378,23 @@ def main() -> int:
     checks = phase_ivf_checks(dev)
     ivf_topk_checks = phase_ivf_topk_check(dev)
     full_scan = phase_full_scan(dev)
-    ivf_scale, ivf_breakdown_ms = phase_ivf_scale(dev)
+    ivf_scale, ivf_breakdown_ms, scale_index = phase_ivf_scale(dev)
+    balanced = phase_ivf_balanced(dev, scale_index)
     main_path = phase_main_path(dev)
     held_out = phase_heldout_m12(dev)
-    ivf_runs = phase_ivf_main_path(dev, main_path)
+    ivf_runs, main_ivf_index = phase_ivf_main_path(dev, main_path)
+    decoded = phase_ivf_decoded(dev, main_path, main_ivf_index, scale_index,
+                                balanced.pop("index"))
+    del scale_index, main_ivf_index
+    sweep = phase_ivf_sweep(dev, main_path)
+    phase_bf16_main_path(dev, main_path)
+    del main_path["cpu_model"], main_path["texts"]
     with tempfile.TemporaryDirectory() as pipeline_root:
         front = phase_dense_front(dev, pipeline_root)
         phase_dense_scale(dev)
         train_run = phase_train_stage1(dev, front["warmup_dir"])
     jpq_run = phase_train_stage2(dev, train_run.pop("model"))
+    phase_stage1_scale(dev)
 
     # launches on the paths: both passes of the K1 top-k on the flat main
     # path (phase 4) and the held-out search (phase 4b); both passes of the
@@ -2954,10 +3404,16 @@ def main() -> int:
     # no path: the passes took the place of the first two, and K4 has none
     # in the JAX package either. Their launches there must stay 0; k1_check,
     # k2_check, k3_check and k4_check hold them against their plain versions
+    # This slice's paths: the balanced build's search (K2's passes, K1 for
+    # the spill), decoded serving (K1 for the spill merges) and
+    # run_ivf_sweep (K1's passes for the exact baseline and the spill,
+    # K2's or K3's passes for each nprobe).
     on_paths = [main_path["launches"], held_out["launches"],
                 *ivf_runs.values(),
                 *(r["launches"] for r in ivf_scale.values()),
-                jpq_run["launches"]]
+                jpq_run["launches"], balanced["launches"],
+                decoded["launches"], decoded["scale_launches"],
+                *sweep.values()]
     launches = {
         "adc_scan": (sum(r["adc_scan"] for r in on_paths), None),
         "adc_group_max": (main_path["launches"]["adc_group_max"]
@@ -3013,6 +3469,21 @@ def main() -> int:
                          for k in ("adc_group_max", "adc_filter")},
         "train_stage2": {k: jpq_run["launches"][k]
                          for k in ("adc_group_max", "adc_filter")},
+        "ivf_balanced": {k: balanced["launches"][k]
+                         for k in ("adc_group_max", "adc_filter")},
+        "ivf_decoded_main_path": {k: decoded["launches"][k]
+                                  for k in ("adc_group_max", "adc_filter")},
+        "ivf_decoded_at_scale": {k: decoded["scale_launches"][k]
+                                 for k in ("adc_group_max", "adc_filter")},
+        "run_ivf_sweep": {lut: {k: r[k] for k in ("adc_group_max",
+                                                  "adc_filter")}
+                          for lut, r in sweep.items()},
+    }
+    ivf_elsewhere = {  # launches of the IVF passes outside ivf_main_path
+        "ivf_scale": {lut: r["launches"] for lut, r in ivf_scale.items()},
+        "ivf_balanced": balanced["launches"],
+        "ivf_decoded_at_scale": decoded["scale_launches"],
+        "run_ivf_sweep": sweep,
     }
     check(all(v > 0 for v in elsewhere["full_scan"].values())
           and all(v > 0 for r in elsewhere["ivf_scale"].values()
@@ -3058,6 +3529,11 @@ def main() -> int:
         for k in ("ivf_scale_ms", "ivf_scale_bound_ms", "ivf_scale_bound_by"):
             if k in t:
                 entry[k] = t[k]
+        if name.startswith(("ivf_group_max", "ivf_filter")):
+            entry["launches_elsewhere"] = {
+                path: ({sub: r[name] for sub, r in runs.items()}
+                       if path in ("ivf_scale", "run_ivf_sweep") else runs[name])
+                for path, runs in ivf_elsewhere.items()}
         line.append(entry)
     print(json.dumps({"kernels": line}), flush=True)
     print(card_line(), flush=True)

@@ -9,12 +9,13 @@ Layer map (the same names as repconc_tpu, where a module exists yet):
   core/    config, model dirs (numpy-only readers and writers of
            params.msgpack and safetensors), device setup, phase stopwatch,
            logging
-  models/  the BERT-family dense encoder, the RepCONC head, flax-tree
-           import and export, HF checkpoints, the adapter tokenizers
+  models/  the BERT-family dense encoder (fp32 or bf16 activations), the
+           RepCONC head, flax-tree import and export, HF checkpoints, the
+           adapter tokenizers
   quant/   PQ codebook distances, argmin and Sinkhorn-constrained encode,
            decode, the training losses
-  index/   dense flat search, ADC search (K1), k-means, PQ, OPQ and IVF-PQ
-           (K2, K3)
+  index/   dense flat search, ADC search (K1), k-means (plain and
+           balanced), PQ, OPQ and IVF-PQ (K2, K3; decoded residency)
   eval/    batch encoding (shard-resumable for a corpus), TREC run IO,
            trec_eval-parity metrics, pipeline
   train/   the training data pipeline, the OPQ warm-up, stage-1 RepCONC
@@ -23,7 +24,9 @@ Layer map (the same names as repconc_tpu, where a module exists yet):
   cli/     every stage of the pipeline but the dataset download:
            run_train_dense, run_customize_dense, run_dense_eval,
            run_gen_valid_set, run_warmup, run_extract_hardneg,
-           run_train_conc, run_repconc_eval, run_train_jpq
+           run_train_conc, run_repconc_eval, run_train_jpq, and
+           run_ivf_sweep
+  recipes/ bench_stage1_scale, the production stage-1 step on the card
   csrc/    hand-written CUDA kernels, built with nvcc at first use (build.py)
 """
 

@@ -74,7 +74,9 @@ def build_parser():
                         help="IVF serving path: auto (the CUDA kernels on a "
                              "GPU, the exact scan on the CPU), pallas (the "
                              "cell-grouped path forced), xla (the exact "
-                             "fp32-LUT scan); decoded* are not ported yet")
+                             "fp32-LUT scan), decoded / decoded_int8 (bf16 / "
+                             "int8 reconstructions resident, the cell-grouped "
+                             "path on any device)")
     parser.add_argument("--lut_dtype", default="bf16", choices=["bf16", "int8"])
     parser.add_argument("--data_parallel", action="store_true")
     parser.add_argument("--corpus_embed_path", default=None,
@@ -88,8 +90,6 @@ def check_ported(args) -> None:
     """Options whose paths the port does not have yet raise; nothing falls
     back to another path."""
     pending = [
-        (args.serving in ("decoded", "decoded_int8"), f"--serving {args.serving}",
-         "Queue 1 item 8 (decoded residency)"),
         (args.data_parallel, "--data_parallel", "Queue 1 item 10 (multi-GPU)"),
     ]
     for hit, flag, item in pending:
@@ -152,11 +152,14 @@ def search_ivf(codes, corpus_ids, query_embeds, centroids, out_corpus_dir,
                                        device=device, stopwatch=stopwatch)
             ivf.save(out_corpus_dir)
     ivf.set_centroids(centroids)
+    decoded = args.serving in ("decoded", "decoded_int8")
     with stopwatch("search"):
         scores, row_ids = serve_search(
             ivf, query_embeds, topk=args.topk, nprobe=args.nprobe,
-            search_batch=args.search_batch, mode=args.serving,
-            lut_dtype=args.lut_dtype, device=device)
+            search_batch=args.search_batch,
+            mode="pallas" if decoded else args.serving,
+            lut_dtype=args.lut_dtype,
+            serving=args.serving if decoded else "adc", device=device)
     return scores, corpus_ids[np.maximum(row_ids, 0)]
 
 

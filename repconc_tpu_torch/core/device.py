@@ -16,7 +16,9 @@ def resolve_device(device="cuda") -> torch.device:
     Precision.HIGHEST where rankings are decided (quant/codebook.py:44-51,
     index/adc.py:24,32-33, models/repconc_model.py:76-77) because reduced
     precision flips argmins and near-tie rankings. TF32 keeps ~10 mantissa
-    bits, as bf16 keeps 8, and flips them the same way.
+    bits, as bf16 keeps 8, and flips them the same way. bf16 GEMMs (a
+    bfloat16 encoder, models/transformer.py) accumulate in fp32 as XLA's
+    do: cuBLAS's reduced-precision reductions are switched off too.
     """
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -25,6 +27,7 @@ def resolve_device(device="cuda") -> torch.device:
                                "torch.cuda.is_available() is False")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         if dev.index is None:  # "cuda" -> "cuda:<current>", as tensors report it
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev

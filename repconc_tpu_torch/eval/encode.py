@@ -352,7 +352,8 @@ def encode_corpus(corpus: Dict[Any, str], model, tokenizer, max_seq_length: int,
     cache_dir: shard-level resume. The output is flushed to
     cache_dir/shard_NNNNNN.npy every `shard_size` docs (tmp + rename), and a
     rerun trusts every complete shard. meta.json (n, output, max_seq_length,
-    shard_size, the boundary ids, the params and corpus fingerprints) drops
+    shard_size, the boundary ids, the params and corpus fingerprints, the
+    activation dtype, which changes the output at equal params) drops
     every shard when any of them changes. The batch size is not in it: the
     output does not depend on it, and rerunning with a smaller batch after
     running out of memory must keep the finished shards."""
@@ -383,6 +384,7 @@ def encode_corpus(corpus: Dict[Any, str], model, tokenizer, max_seq_length: int,
             "first_id": str(corpus_ids[0]) if n else None,
             "last_id": str(corpus_ids[-1]) if n else None,
             "params_fp": _params_fingerprint(model),
+            "dtype": enc_cfg.dtype,
             "corpus_fp": corpus_fp}
     os.makedirs(cache_dir, exist_ok=True)
     meta_path = os.path.join(cache_dir, "meta.json")

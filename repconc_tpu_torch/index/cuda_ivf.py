@@ -26,6 +26,16 @@ needs static shapes, and searched again at the worst-case shape when pairs
 overflowed it (:1016-1028). PyTorch has no such constraint, so the grid
 here is exact: T = sum_c ceil(count_c / QT_G), one device-to-host read of
 one integer per batch. No pair can overflow and there is no retry.
+
+Decoded residency (pallas_ivf.py:389-557,942-1028) keeps the cells'
+reconstructions on the device, bf16 (D * 2 bytes a slot) or int8 with a
+per-dimension scale (D bytes a slot), and scores each work tile as one
+batched matmul, (QT_G, D) queries against the cell's (Lpad, D) vectors.
+The JAX package left these scorers to XLA, so here they are torch ops:
+`decode_cells`, `decode_cells_int8`, `score_tiles_decoded`,
+`score_tiles_decoded_int8` and `ivf_search_device_decoded`, which probes,
+groups, regroups and takes the top-k as the unfused ADC search does
+(`regroup_topk`). The spill is merged with K1, as for ADC serving.
 """
 from __future__ import annotations
 
@@ -41,6 +51,7 @@ from repconc_tpu_torch.index.adc import (RUN, build_lut, group_size,
                                          quantize_lut_int8)
 from repconc_tpu_torch.index.cuda_adc import CudaADCIndex, select_topk
 from repconc_tpu_torch.index.ivf import IVFIndex, probe_cells
+from repconc_tpu_torch.quant.codebook import decode_gather
 
 SOURCE = "ivf_scan.cu"
 QT_G = 32  # query slots per work tile (the kernel's warp-wide slot ballot)
@@ -560,23 +571,159 @@ def merge_spill(s: torch.Tensor, i: torch.Tensor, spill: Optional[CudaADCIndex],
     return s, torch.gather(i, 1, pos)
 
 
+SERVINGS = ("adc", "decoded", "decoded_int8")
+# The JAX package's int8 scales are x / 127.0 inside jit, which XLA
+# computes as x * fp32(1 / 127): the port multiplies too, bit for bit.
+INV127 = 1.0 / 127.0
+
+
+@torch.no_grad()
+def decode_cells(cell_codes: torch.Tensor, pq_centroids: torch.Tensor,
+                 chunk: int = 64) -> torch.Tensor:
+    """Every slot's reconstruction, (nlist, Lpad, M) uint8 codes ->
+    (nlist, Lpad, D) bf16 (pallas_ivf.py:389-409): the fp32 gather,
+    rounded once to bf16, `chunk` cells at a time. Pad slots decode their
+    code 0s, as in the JAX package; the ids mask them."""
+    nlist, Lpad, M = cell_codes.shape
+    D = pq_centroids.shape[0] * pq_centroids.shape[2]
+    out = torch.empty((nlist, Lpad, D), dtype=torch.bfloat16,
+                      device=cell_codes.device)
+    for c in range(0, nlist, chunk):
+        codes = cell_codes[c:c + chunk].reshape(-1, M)
+        out[c:c + chunk] = decode_gather(codes, pq_centroids).reshape(
+            -1, Lpad, D).to(torch.bfloat16)
+    return out
+
+
+@torch.no_grad()
+def decode_cells_int8(cell_codes: torch.Tensor, pq_centroids: torch.Tensor,
+                      chunk: int = 64):
+    """int8 decoded residency (pallas_ivf.py:412-442): ((nlist, Lpad, D)
+    int8, (D,) f32 scale), each value round(x / scale) half to even,
+    clipped to +-127. The per-dimension scale is the largest |value| any
+    reconstruction can take there (the codebook's, exact) over 127; it
+    folds into the query at search time, so each tile scores as an
+    integer product."""
+    nlist, Lpad, M = cell_codes.shape
+    D = pq_centroids.shape[0] * pq_centroids.shape[2]
+    scale = pq_centroids.abs().amax(1).reshape(D).clamp(min=1e-12) * INV127
+    out = torch.empty((nlist, Lpad, D), dtype=torch.int8,
+                      device=cell_codes.device)
+    for c in range(0, nlist, chunk):
+        flat = decode_gather(cell_codes[c:c + chunk].reshape(-1, M),
+                             pq_centroids)
+        out[c:c + chunk] = torch.clamp(torch.round(flat / scale), -127,
+                                       127).to(torch.int8).reshape(-1, Lpad, D)
+    return out, scale
+
+
+def _score_tiles(work_cell, qidx, q_rows_z, cell_vecs, row_scale_z=None):
+    """(T, QT_G, Lpad) f32: out[t, s, l] = sum_d q_rows_z[qidx[t, s], d] *
+    cell_vecs[work_cell[t], l, d], as an fp32 batched matmul of the two
+    operands' values (TF32 off), then times row_scale_z[qidx[t, s]]. Each
+    batched matmul takes as many tiles as hold about 2^26 fp32 values of
+    their cells' vectors."""
+    T = work_cell.shape[0]
+    _, Lpad, D = cell_vecs.shape
+    out = torch.empty((T, QT_G, Lpad), dtype=torch.float32,
+                      device=cell_vecs.device)
+    tc = max(1, (1 << 26) // max(Lpad * D, 1))
+    for t in range(0, T, tc):
+        wc, qi = work_cell[t:t + tc].long(), qidx[t:t + tc].long()
+        q_rows = q_rows_z[qi].float()                      # (tc, QT_G, D)
+        tile_vecs = cell_vecs[wc].float()                  # (tc, Lpad, D)
+        acc = torch.bmm(q_rows, tile_vecs.transpose(1, 2))
+        if row_scale_z is not None:
+            acc *= row_scale_z[qi][:, :, None]
+        out[t:t + tc] = acc
+    return out
+
+
+def score_tiles_decoded(work_cell: torch.Tensor, qidx: torch.Tensor,
+                        q_z: torch.Tensor, cell_vecs: torch.Tensor
+                        ) -> torch.Tensor:
+    """The bf16 decoded scorer (pallas_ivf.py:475-515): (T, QT_G, Lpad)
+    f32 scores of bf16 queries q_z (Qz, D), row Qz - 1 zero for empty
+    slots, against bf16 cell vectors. XLA multiplies the bf16 values into
+    an fp32 result (preferred_element_type); torch.bmm on bf16 returns
+    bf16, so the values are multiplied in fp32 instead: a product of two
+    bf16 values is exact there, and only the order of the fp32 sums
+    differs."""
+    return _score_tiles(work_cell, qidx, q_z, cell_vecs)
+
+
+def score_tiles_decoded_int8(work_cell: torch.Tensor, qidx: torch.Tensor,
+                             q8_z: torch.Tensor, qscale_z: torch.Tensor,
+                             cell_vecs_i8: torch.Tensor) -> torch.Tensor:
+    """The int8 decoded scorer (pallas_ivf.py:445-472): the s8 x s8 -> s32
+    sum of each slot, times its query's scale, (T, QT_G, Lpad) f32.
+    torch.bmm has no int8 on CUDA and torch._int_mm is 2-D, so the int8
+    values are multiplied as fp32: every product and partial sum is an
+    integer below D * 127^2 < 2^24 (D <= 1040), which fp32 holds exactly,
+    so the sums are the int32 sums in any order."""
+    D = cell_vecs_i8.shape[2]
+    if D * 127 * 127 >= 1 << 24:
+        raise ValueError(f"D={D}: int8 sums above 2^24 are not exact in fp32")
+    return _score_tiles(work_cell, qidx, q8_z, cell_vecs_i8, qscale_z)
+
+
+def quantize_queries_int8(query_embeds: torch.Tensor, doc_scale: torch.Tensor):
+    """(q8 (Q, D) int8, qscale (Q,) f32): the queries with the store's
+    per-dimension scale folded in, quantized per query
+    (pallas_ivf.py:537-543)."""
+    q_f = query_embeds * doc_scale[None, :]
+    qscale = q_f.abs().amax(1).clamp(min=1e-12) * INV127
+    q8 = torch.clamp(torch.round(q_f / qscale[:, None]), -127,
+                     127).to(torch.int8)
+    return q8, qscale
+
+
+@torch.no_grad()
+def ivf_search_device_decoded(query_embeds, coarse, cell_vecs, cell_ids,
+                              nprobe: int, topk: int, doc_scale=None):
+    """IVF search over a decoded store (pallas_ivf.py:518-557): the probe,
+    the grouping into tiles, the masking and the top-k of the ADC search,
+    with the tiles scored by score_tiles_decoded (bf16 cell_vecs) or
+    score_tiles_decoded_int8 (int8, with doc_scale). Returns (scores, ids)
+    on the device, ids -1 (score -inf) for a pad."""
+    Q, D = query_embeds.shape
+    nlist = cell_vecs.shape[0]
+    cells = probe_cells(query_embeds, coarse, nprobe)
+    row, work_cell, slot_pair = group_pairs(cells, Q, nlist, nprobe)
+    qidx = slot_queries(slot_pair, nprobe, Q)
+    if cell_vecs.dtype == torch.int8:
+        q8, qscale = quantize_queries_int8(query_embeds, doc_scale)
+        scores = score_tiles_decoded_int8(
+            work_cell, qidx, torch.cat([q8, q8.new_zeros((1, D))]),
+            torch.cat([qscale, qscale.new_zeros(1)]), cell_vecs)
+    else:
+        q = query_embeds.to(torch.bfloat16)
+        scores = score_tiles_decoded(work_cell, qidx,
+                                     torch.cat([q, q.new_zeros((1, D))]),
+                                     cell_vecs)
+    return regroup_topk(scores.reshape(-1, cell_vecs.shape[1]), row, cells,
+                        cell_ids, Q, nprobe, topk)
+
+
 class CudaIVFIndex:
-    """Device-resident IVF-PQ index served by the cell-grouped kernels
-    (PallasIVFIndex, pallas_ivf.py:897-1028, with serving="adc" only): the
-    cell codes, ids, real-doc counts and coarse centroids live on the
-    device once; each search probes, groups, takes the top-k of the probed
-    cells with the two passes of ivf_topk (bf16 or int8 LUT) and merges
-    the spill segment, scanned with K1 (bf16 LUT). On a CPU device the
-    kernels' plain versions run instead."""
+    """Device-resident IVF-PQ index (PallasIVFIndex, pallas_ivf.py:
+    897-1028): the cell codes, ids, real-doc counts and coarse centroids
+    live on the device once. serving="adc" takes each query's top-k of its
+    probed cells with the two passes of ivf_topk (bf16 or int8 LUT);
+    "decoded" / "decoded_int8" score the tiles against a resident store of
+    reconstructions (ivf_search_device_decoded), one dtype resident at a
+    time. Either way the spill segment is scanned with K1 (bf16 LUT) and
+    merged. On a CPU device the kernels' plain versions run instead."""
 
     def __init__(self, index: IVFIndex, serving: str = "adc", device="cuda"):
-        if serving != "adc":
-            raise NotImplementedError(
-                f"serving={serving!r} (decoded residency) is not ported yet "
-                "(ROADMAP.md, Queue 1 item 8)")
+        if serving not in SERVINGS:
+            raise ValueError(f"serving must be one of {SERVINGS}, not "
+                             f"{serving!r}")
         self.device = resolve_device(device)
         self.host = index
         self.nlist = index.nlist
+        self.serving = serving
+        self.store = None  # (dtype, vectors, doc scale or None)
         self.cell_codes = torch.as_tensor(index.cell_codes, device=self.device)
         self.cell_ids = torch.as_tensor(index.cell_ids, device=self.device)
         self.cell_len = cell_lengths(self.cell_ids)
@@ -590,25 +737,87 @@ class CudaIVFIndex:
         self.set_centroids(index.centroids)
 
     def set_centroids(self, centroids) -> None:
-        """Swap PQ codebooks (the query model's centroids)."""
+        """Swap PQ codebooks (the query model's centroids). A decoded store
+        bakes in the codebook: it is dropped, and rebuilt at once when
+        decoded residency is the default serving (pallas_ivf.py:927-940)."""
         self.centroids = torch.as_tensor(np.asarray(centroids, np.float32),
                                          device=self.device)
         if self.spill is not None:
             self.spill.set_centroids(self.centroids)
+        self.store = None
+        if self.serving != "adc":
+            self.decoded_store(_store_dtype(self.serving))
+
+    def decoded_bytes(self, dtype: str = "bf16") -> int:
+        """Device bytes of the decoded store: nlist * Lpad * D, times 2 for
+        bf16."""
+        nlist, Lpad, _ = self.cell_codes.shape
+        D = self.centroids.shape[0] * self.centroids.shape[2]
+        return nlist * Lpad * D * (1 if dtype == "int8" else 2)
+
+    def decoded_store(self, dtype: str):
+        """(vectors, doc scale or None) of the `dtype` store, built when
+        another dtype or none is resident; the serving default stays. A
+        store that cannot fit the card's free memory raises MemoryError
+        (decoded_bytes); nothing falls back to ADC."""
+        if dtype not in ("bf16", "int8"):
+            raise ValueError(f"decoded dtype must be bf16 or int8, not "
+                             f"{dtype!r}")
+        if self.store is None or self.store[0] != dtype:
+            self.store = None  # free the other dtype's store first
+            if self.device.type == "cuda":
+                free, _ = torch.cuda.mem_get_info(self.device)
+                need = self.decoded_bytes(dtype)
+                if need > free:
+                    raise MemoryError(
+                        f"decoded {dtype} store needs {need} bytes "
+                        f"(decoded_bytes), the card has {free} free")
+            if dtype == "int8":
+                vecs, scale = decode_cells_int8(self.cell_codes,
+                                                self.centroids)
+            else:
+                vecs, scale = decode_cells(self.cell_codes,
+                                           self.centroids), None
+            self.store = (dtype, vecs, scale)
+        return self.store[1], self.store[2]
+
+    def enable_decoded_serving(self, dtype: str = "bf16") -> "CudaIVFIndex":
+        """Build the `dtype` store and make decoded residency the default
+        serving; search(serving=...) overrides it per call."""
+        self.decoded_store(dtype)
+        self.serving = "decoded_int8" if dtype == "int8" else "decoded"
+        return self
 
     @torch.no_grad()
     def search_device(self, query_embeds, topk: int = 1000, nprobe: int = 64,
-                      lut_dtype: str = "bf16"):
+                      lut_dtype: str = "bf16", serving: Optional[str] = None):
         """(scores, ids) tensors on the device, the spill merged; ids are
-        corpus rows, -1 (score -inf) for a pad."""
+        corpus rows, -1 (score -inf) for a pad. lut_dtype applies to ADC
+        serving; serving overrides the default for this call."""
+        mode = serving or self.serving
+        if mode not in SERVINGS:
+            raise ValueError(f"serving must be one of {SERVINGS}, not "
+                             f"{mode!r}")
         q = torch.as_tensor(query_embeds, dtype=torch.float32,
                             device=self.device)
-        s, i = ivf_search_device(q, self.centroids, self.coarse,
-                                 self.cell_codes, self.cell_ids, self.cell_len,
-                                 min(nprobe, self.nlist), topk, lut_dtype)
+        nprobe = min(nprobe, self.nlist)
+        if mode == "adc":
+            s, i = ivf_search_device(q, self.centroids, self.coarse,
+                                     self.cell_codes, self.cell_ids,
+                                     self.cell_len, nprobe, topk, lut_dtype)
+        else:
+            vecs, scale = self.decoded_store(_store_dtype(mode))
+            s, i = ivf_search_device_decoded(q, self.coarse, vecs,
+                                             self.cell_ids, nprobe, topk,
+                                             scale)
         return merge_spill(s, i, self.spill, self.spill_ids, q, topk)
 
     def search(self, query_embeds, topk: int = 1000, nprobe: int = 64,
-               lut_dtype: str = "bf16"):
-        s, i = self.search_device(query_embeds, topk, nprobe, lut_dtype)
+               lut_dtype: str = "bf16", serving: Optional[str] = None):
+        s, i = self.search_device(query_embeds, topk, nprobe, lut_dtype,
+                                  serving)
         return s.cpu().numpy(), i.cpu().numpy()
+
+
+def _store_dtype(serving: str) -> str:
+    return "int8" if serving == "decoded_int8" else "bf16"

@@ -28,7 +28,8 @@ import torch
 from repconc_tpu_torch.core.device import resolve_device
 from repconc_tpu_torch.core.profiling import Stopwatch
 from repconc_tpu_torch.index.adc import adc_search, build_lut
-from repconc_tpu_torch.index.kmeans import (assign, kmeans_fit,
+from repconc_tpu_torch.index.kmeans import (assign, balanced_kmeans_fit,
+                                            kmeans_fit,
                                             subsample_for_training)
 from repconc_tpu_torch.quant.codebook import decode_gather
 
@@ -202,13 +203,13 @@ def build_ivf(corpus_embeds, codes: np.ndarray, pq_centroids: np.ndarray,
     corpus_embeds: (N, D) embeddings in the PQ codes' (rotated) space, or a
     ReconstructionView; codes: (N, M) uint8; pq_centroids: (M, K, dsub).
     The training subsample's rows equal the JAX package's at the same seed;
-    the k-means++ draws do not (torch's generator). `stopwatch` collects
-    the phases ivf_kmeans, ivf_assign and ivf_fill.
+    the k-means++ draws do not (torch's generator). balanced=True trains
+    the coarse quantizer with balanced_kmeans_fit (the Sinkhorn
+    uniform-assignment constraint): more even lists, so less spill; the
+    docs are then assigned to their nearest cell, and Lpad and the spill
+    follow as for the plain build. `stopwatch` collects the
+    phases ivf_kmeans, ivf_assign and ivf_fill.
     """
-    if balanced:
-        raise NotImplementedError(
-            "build_ivf(balanced=True) (balanced k-means) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 8)")
     dev = resolve_device(device)
     sw = stopwatch if stopwatch is not None else Stopwatch()
     N = corpus_embeds.shape[0]
@@ -226,9 +227,10 @@ def build_ivf(corpus_embeds, codes: np.ndarray, pq_centroids: np.ndarray,
             train = torch.as_tensor(np.asarray(subsample_for_training(
                 corpus_embeds, max_train_points, seed), dtype=np.float32),
                 device=dev)
-        logger.info("IVF coarse k-means: nlist=%d on %d train points",
-                    nlist, len(train))
-        coarse, _ = kmeans_fit(train, nlist, iters=kmeans_iters, seed=seed)
+        logger.info("IVF coarse k-means: nlist=%d on %d train points "
+                    "(balanced=%s)", nlist, len(train), balanced)
+        fit = balanced_kmeans_fit if balanced else kmeans_fit
+        coarse, _ = fit(train, nlist, iters=kmeans_iters, seed=seed)
         del train
         coarse_np = coarse.cpu().numpy()
     with sw("ivf_assign"):
@@ -320,20 +322,24 @@ def serve_search(index: IVFIndex, query_embeds, topk: int = 1000,
       "pallas" - the cell-grouped path forced: the two passes of
                  cuda_ivf.ivf_topk (K2's scan with a bf16 LUT, K3's with
                  int8) on a CUDA device, their plain versions on the CPU;
-      "xla"    - search_xla, the exact fp32-LUT scan; lut_dtype does not
-                 apply (a warning says so).
+      "xla"    - search_xla, the exact fp32-LUT scan; lut_dtype and
+                 serving do not apply (a warning says so).
+    serving: "adc" (the code store), or decoded residency with the cell-
+    grouped path, "decoded" (bf16 reconstructions resident) or
+    "decoded_int8" (int8 reconstructions and a per-dimension scale); the
+    decoded scorers are torch ops, so they run on the CPU too.
     Queries go in search_batch chunks, the short last chunk zero-padded, as
-    in the JAX package. mesh= (a cell-sharded index) and serving="decoded*"
-    (decoded residency) are not ported yet and raise.
+    in the JAX package. mesh= (a cell-sharded index) is not ported yet and
+    raises.
     """
     if mesh is not None:
         raise NotImplementedError(
             "a cell-sharded IVF (mesh=) is not ported yet (ROADMAP.md, Queue 1 "
             "item 10)")
-    if serving not in (None, "adc"):
-        raise NotImplementedError(
-            f"serving={serving!r} (decoded residency) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 8)")
+    serving = serving or "adc"
+    if serving not in ("adc", "decoded", "decoded_int8"):
+        raise ValueError(f"serving must be adc, decoded or decoded_int8, not "
+                         f"{serving!r}")
     if lut_dtype not in ("bf16", "int8"):
         raise ValueError(f"lut_dtype must be bf16 or int8, not {lut_dtype!r}")
     dev = resolve_device(device)
@@ -344,13 +350,17 @@ def serve_search(index: IVFIndex, query_embeds, topk: int = 1000,
             logger.warning("serve_search: lut_dtype=%s applies to the "
                            "cell-grouped path only; the xla scan scores "
                            "exact fp32 LUTs", lut_dtype)
+        if serving != "adc":
+            logger.warning("serve_search: serving=%s applies to the "
+                           "cell-grouped path only; the xla scan serves from "
+                           "the code store (exact scores)", serving)
         return search_xla(index, query_embeds, topk=topk, nprobe=nprobe,
                           device=dev)
     if mode != "pallas":
         raise ValueError(f"mode must be auto, pallas or xla, not {mode!r}")
     from repconc_tpu_torch.index.cuda_ivf import CudaIVFIndex
 
-    searcher = CudaIVFIndex(index, device=dev)
+    searcher = CudaIVFIndex(index, serving=serving, device=dev)
     Q = len(query_embeds)
     if Q == 0:
         return (np.zeros((0, topk), np.float32), np.zeros((0, topk), np.int64))

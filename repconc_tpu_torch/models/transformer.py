@@ -16,6 +16,19 @@ scaled_dot_product_attention, so the masking and the fp32 arithmetic are
 the reference's. Submodule names follow the flax parameter tree, which
 keeps models/convert.py a plain renaming.
 
+Activations run in cfg.dtype (float32 or bfloat16) with fp32 parameters,
+cast where the JAX package casts them, never under torch.autocast (whose
+op policies round elsewhere): embeddings looked up and added in the
+activation dtype (:97-114); each Dense takes its input, kernel and bias in
+the activation dtype, as flax's Dense(dtype=...) does (:43-45,61,75-77);
+attention scores, the -1e9 bias and the softmax in fp32, the context
+accumulated in fp32 and then cast (:49-58,120-121); residual adds in the
+activation dtype, every LayerNorm in fp32 with its output cast back
+(:72-83,115-116); the hidden states cast to fp32 before pooling, and the
+ANCE head in fp32 (:146,163-167). At float32 no cast is made: the
+encoder computes in its parameters' dtype, fp32, or fp64 when a caller
+converts the whole model (a reference step in fp64).
+
 Dropout is on exactly when a forward is given a `generator`, the
 counterpart of flax's deterministic=False with a dropout key: its masks
 come from that generator and never from the global RNG, so a forward
@@ -37,14 +50,50 @@ ACT = {"gelu": lambda x: F.gelu(x, approximate="none"), "relu": F.relu,
        "gelu_new": lambda x: F.gelu(x, approximate="tanh")}
 
 
+ACTIVATION_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def activation_dtype(cfg: EncoderConfig):
+    """The reduced activation dtype of cfg.dtype (torch.bfloat16), or None
+    for "float32": no cast, the parameters' own dtype. Any other name
+    raises."""
+    if cfg.dtype not in ACTIVATION_DTYPES:
+        raise ValueError(f"activation dtype {cfg.dtype!r}: want one of "
+                         f"{sorted(ACTIVATION_DTYPES)}")
+    return ACTIVATION_DTYPES[cfg.dtype]
+
+
+def cast(x: torch.Tensor, dtype) -> torch.Tensor:
+    """x in the activation dtype; x itself when dtype is None."""
+    return x if dtype is None else x.to(dtype)
+
+
 def dropout(x: torch.Tensor, p: float, generator) -> torch.Tensor:
     """Inverted dropout with masks from `generator`; identity when the
-    generator is None (no dropout asked) or p is 0."""
+    generator is None (no dropout asked) or p is 0. The uniforms are drawn
+    in fp32 whatever x's dtype: bf16 uniforms would put the keep
+    probability on a 1/256 grid."""
     if generator is None or p == 0.0:
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=x.dtype) >= p
+                      dtype=torch.float32) >= p
     return x * keep / (1.0 - p)
+
+
+def dense(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    """flax's Dense(dtype=dtype) over fp32 master params: input, kernel and
+    bias cast to dtype, the product accumulated in fp32 (TF32 and bf16
+    reduced-precision reductions are off, core/device.py)."""
+    return F.linear(cast(x, dtype), cast(layer.weight, dtype),
+                    cast(layer.bias, dtype))
+
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype) -> torch.Tensor:
+    """flax's LayerNorm(dtype=float32): statistics and affine in fp32, the
+    output cast to the activation dtype."""
+    if dtype is None:
+        return ln(x)
+    return ln(x.float()).to(dtype)
 
 
 class SelfAttention(nn.Module):
@@ -57,22 +106,32 @@ class SelfAttention(nn.Module):
         self.value = nn.Linear(H, H)
         self.out = nn.Linear(H, H)
         self.attn_dropout = cfg.attention_dropout
+        self.dtype = activation_dtype(cfg)
 
     def forward(self, hidden: torch.Tensor, attention_bias: torch.Tensor,
                 generator=None):
         B, L, H = hidden.shape
+        dt = self.dtype
 
         def heads(x):  # (B, L, H) -> (B, nh, L, hd)
             return x.view(B, L, self.num_heads, self.head_dim).transpose(1, 2)
 
-        q, k, v = (heads(self.query(hidden)), heads(self.key(hidden)),
-                   heads(self.value(hidden)))
+        q, k, v = (heads(dense(self.query, hidden, dt)),
+                   heads(dense(self.key, hidden, dt)),
+                   heads(dense(self.value, hidden, dt)))
+        if dt is not None:
+            # fp32 scores and context from bf16 values
+            # (preferred_element_type=f32): a product of two bf16 values is
+            # exact in fp32
+            q, k, v = q.float(), k.float(), v.float()
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(self.head_dim)
         scores = scores + attention_bias  # (B, 1, 1, L) additive mask
-        probs = dropout(torch.softmax(scores, dim=-1), self.attn_dropout,
-                        generator)
-        ctx = torch.matmul(probs, v).transpose(1, 2).reshape(B, L, H)
-        return self.out(ctx)
+        probs = dropout(cast(torch.softmax(scores, dim=-1), dt),
+                        self.attn_dropout, generator)
+        if dt is not None:
+            probs = probs.float()
+        ctx = cast(torch.matmul(probs, v), dt)
+        return dense(self.out, ctx.transpose(1, 2).reshape(B, L, H), dt)
 
 
 class TransformerLayer(nn.Module):
@@ -85,14 +144,17 @@ class TransformerLayer(nn.Module):
         self.mlp_ln = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.hidden_dropout = cfg.hidden_dropout
         self.act = ACT[cfg.hidden_act]
+        self.dtype = activation_dtype(cfg)
 
     def forward(self, hidden, attention_bias, generator=None):
+        dt = self.dtype
         attn = dropout(self.attention(hidden, attention_bias, generator),
                        self.hidden_dropout, generator)
-        hidden = self.attention_ln(hidden + attn)
-        down = dropout(self.mlp_down(self.act(self.mlp_up(hidden))),
-                       self.hidden_dropout, generator)
-        return self.mlp_ln(hidden + down)
+        hidden = layer_norm(self.attention_ln, hidden + attn, dt)
+        up = self.act(dense(self.mlp_up, hidden, dt))
+        down = dropout(dense(self.mlp_down, up, dt), self.hidden_dropout,
+                       generator)
+        return layer_norm(self.mlp_ln, hidden + down, dt)
 
 
 class TransformerEncoder(nn.Module):
@@ -100,11 +162,8 @@ class TransformerEncoder(nn.Module):
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
-        if cfg.dtype != "float32":
-            raise NotImplementedError(
-                f"activation dtype {cfg.dtype}: the port runs fp32 only "
-                "(ROADMAP.md, Queue 1 item 3)")
         self.cfg = cfg
+        self.dtype = activation_dtype(cfg)
         H = cfg.hidden_size
         self.word_embeddings = nn.Embedding(cfg.vocab_size, H)
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, H)
@@ -125,13 +184,18 @@ class TransformerEncoder(nn.Module):
                                     cfg.pad_token_id)
         # clamp: sequences longer than the table must not read past its end
         positions = positions.clamp(max=cfg.max_position_embeddings - 1)
-        hidden = self.word_embeddings(input_ids) + self.position_embeddings(positions)
+        dt = self.dtype
+        # the rows of the tables cast to dt: the rows of the cast tables
+        hidden = (cast(self.word_embeddings(input_ids), dt)
+                  + cast(self.position_embeddings(positions), dt))
         if self.token_type_embeddings is not None:
-            hidden = hidden + self.token_type_embeddings(torch.zeros_like(input_ids))
-        hidden = dropout(self.embeddings_ln(hidden), cfg.hidden_dropout,
-                         generator)
+            hidden = hidden + cast(self.token_type_embeddings(
+                torch.zeros_like(input_ids)), dt)
+        hidden = dropout(layer_norm(self.embeddings_ln, hidden, dt),
+                         cfg.hidden_dropout, generator)
+        # -1e9 is added to the scores, fp32 under bf16 activations
         bias = torch.where(attention_mask[:, None, None, :] > 0, 0.0, -1e9)
-        bias = bias.to(hidden.dtype)
+        bias = bias.to(hidden.dtype if dt is None else torch.float32)
         for layer in self.layers:
             hidden = layer(hidden, bias, generator)
         return hidden
@@ -157,6 +221,8 @@ class DenseEncoder(nn.Module):
     def forward(self, input_ids, attention_mask, generator=None):
         cfg = self.cfg
         hidden = self.transformer(input_ids, attention_mask, generator)
+        if self.transformer.dtype is not None:
+            hidden = hidden.float()  # pooled in fp32 (:146)
         if cfg.pooling == "cls":
             embeds = hidden[:, 0]
         else:

@@ -750,3 +750,61 @@ def test_opq_step_on_card_matches_cpu(cuda):
         out[dev] = (R.cpu(), c.cpu())
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0, atol=1e-4)
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-4)
+
+
+def test_bf16_encoder_on_card_matches_cpu(cuda):
+    """A bf16 encoder on the card against the same bf16 encoder on the CPU
+    and the fp32 one: the card's gap to fp32 within twice the CPU's; fp32
+    embeddings out."""
+    import copy
+    import dataclasses
+
+    from repconc_tpu_torch.core.config import EncoderConfig, RepConcConfig
+    from repconc_tpu_torch.models.repconc_model import (RepConcModel,
+                                                        init_random_)
+
+    cfg = RepConcConfig(encoder=EncoderConfig(
+        vocab_size=512, hidden_size=128, num_hidden_layers=2,
+        num_attention_heads=4, intermediate_size=256, pooling="mean"),
+        MCQ_M=8)
+    m32 = init_random_(RepConcModel(cfg), torch.Generator().manual_seed(0))
+    m16 = RepConcModel(dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, dtype="bfloat16")))
+    m16.load_state_dict(m32.state_dict())
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(4, 512, (16, 40), generator=g)
+    mask = torch.ones_like(ids)
+    mask[3, 20:] = 0
+    with torch.no_grad():
+        ref = m32.encode_continuous(ids, mask)
+        cpu = m16.encode_continuous(ids, mask)
+        card = copy.deepcopy(m16).to(cuda).encode_continuous(
+            ids.to(cuda), mask.to(cuda)).cpu()
+    assert card.dtype == torch.float32
+    cpu_gap = float((cpu - ref).abs().max())
+    assert 0.0 < cpu_gap and float((card - ref).abs().max()) <= 2 * cpu_gap
+
+
+@pytest.mark.parametrize("serving", ["decoded", "decoded_int8"])
+def test_decoded_search_on_card_matches_cpu(cuda, serving):
+    """Decoded serving on the card against the same torch ops on the CPU:
+    int8 scores bit-equal (exact integer sums), bf16 within 1e-5 of the
+    largest score; ids differ only among equal scores; the spill merged."""
+    from repconc_tpu_torch.index.cuda_ivf import CudaIVFIndex
+    from repconc_tpu_torch.index.ivf import build_ivf_from_codes
+
+    rng = np.random.default_rng(4)
+    codes = rng.integers(0, 64, size=(6000, 8)).astype(np.uint8)
+    cent = rng.normal(size=(8, 64, 8)).astype(np.float32)
+    q = rng.normal(size=(70, 64)).astype(np.float32)
+    index = build_ivf_from_codes(codes, cent, nlist=16, kmeans_iters=4,
+                                 pad_quantile=0.6, device="cpu")
+    assert len(index.spill_ids) > 0
+    got_s, got_i = CudaIVFIndex(index, serving=serving, device=cuda).search(
+        q, topk=50, nprobe=5)
+    want_s, want_i = CudaIVFIndex(index, serving=serving,
+                                  device="cpu").search(q, topk=50, nprobe=5)
+    tol = 0.0 if serving == "decoded_int8" else 1e-5 * np.abs(want_s).max()
+    np.testing.assert_allclose(got_s, want_s, rtol=0, atol=tol)
+    differ = got_i != want_i
+    assert (np.abs(got_s - want_s)[differ] <= tol).all()

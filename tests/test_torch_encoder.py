@@ -142,6 +142,18 @@ def test_checkpoint_load_matches_flax(tmp_path):
 
 
 def test_unported_dtype_raises():
+    """bf16 activations are ported: a bfloat16 config builds, keeps fp32
+    parameters and encodes to fp32 (tests/test_torch_bf16.py holds it to
+    the JAX package); an activation dtype neither package has raises."""
     config = RepConcConfig(**_tiny_config(dtype="bfloat16").to_dict())
-    with pytest.raises(NotImplementedError):
-        RepConcModel(config)
+    model = RepConcModel(config)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    ids, mask = _inputs(np.random.default_rng(0), config.encoder.vocab_size)
+    with torch.no_grad():
+        out = model(torch.from_numpy(ids), torch.from_numpy(mask),
+                    return_code=True)
+    assert out.continuous_embeds.dtype == torch.float32
+    assert torch.isfinite(out.continuous_embeds).all()
+    assert out.discrete_codes.shape == (3, config.MCQ_M)
+    with pytest.raises(ValueError):
+        RepConcModel(RepConcConfig(**_tiny_config(dtype="float16").to_dict()))

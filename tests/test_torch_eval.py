@@ -253,9 +253,12 @@ def test_cli_guards_and_unported_options(toy_model_dir, toy_data, tmp_path):
     with pytest.raises(SystemExit):
         port_cli.main(same + ["--device", "cpu"])
     base = _cli_args(toy_model_dir, paths, tmp_path / "c", tmp_path / "q")
-    for extra in (["--serving", "decoded"], ["--data_parallel"]):
-        with pytest.raises(NotImplementedError):
-            port_cli.main(base + extra + ["--device", "cpu"])
+    with pytest.raises(NotImplementedError):
+        port_cli.main(base + ["--data_parallel", "--device", "cpu"])
+    # decoded residency is ported: --serving decoded serves the IVF
+    port_cli.main(base + ["--index_type", "ivf", "--nlist", "8", "--nprobe",
+                          "8", "--serving", "decoded", "--device", "cpu"])
+    assert (tmp_path / "q" / "metric.json").exists()
     # the adapters are ported: the TCT tokenizer runs over the toy vocab
     tct = _cli_args(toy_model_dir, paths, tmp_path / "tc", tmp_path / "tq")
     port_cli.main(tct + ["--adapter", "tct", "--device", "cpu"])

@@ -46,6 +46,13 @@ FRONT_MODULES = ["repconc_tpu_torch.core.safetensors_io",
                  "repconc_tpu_torch.cli.run_train_dense",
                  "repconc_tpu_torch.cli.run_warmup",
                  "repconc_tpu_torch.cli.run_pretokenize"]
+# the modules of bf16 training at scale and the rest of IVF, each guarded by
+# the tests below
+SLICE9_MODULES = ["repconc_tpu_torch.recipes",
+                  "repconc_tpu_torch.recipes.bench_stage1_scale",
+                  "repconc_tpu_torch.cli.run_ivf_sweep",
+                  "repconc_tpu_torch.index.kmeans",
+                  "repconc_tpu_torch.index.cuda_ivf"]
 
 
 def _module_names():
@@ -119,6 +126,20 @@ def test_front_module_is_guarded(name):
     assert name in _module_names()
     code = (f"import sys, {name}\n"
             "sys.exit(1 if 'transformers' in sys.modules else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("name", SLICE9_MODULES)
+def test_slice9_module_is_guarded(name):
+    """The bench recipe, the sweep CLI and the balanced / decoded IVF
+    modules are among those the import guards walk, and importing one
+    alone loads neither torch's CUDA state nor transformers."""
+    assert name in _module_names()
+    code = (f"import sys, torch, {name}\n"
+            "sys.exit(1 if 'transformers' in sys.modules\n"
+            "         or torch.cuda.is_initialized() else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

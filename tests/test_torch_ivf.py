@@ -129,9 +129,19 @@ def test_build_ivf_from_codes_covers_every_doc(built):
 
 
 def test_build_ivf_balanced_raises(built):
+    """The balanced build is ported: it covers every doc once and stores
+    the codes faithfully (tests/test_torch_ivf_decoded.py holds it to the
+    JAX package's)."""
     _, embeds, codes, cent, _ = built
-    with pytest.raises(NotImplementedError):
-        ivf.build_ivf(embeds, codes, cent, nlist=4, balanced=True, device="cpu")
+    index = ivf.build_ivf(embeds, codes, cent, nlist=4, balanced=True,
+                          device="cpu")
+    assert index.nlist == 4 and index.ntotal == len(codes)
+    ids = np.concatenate([index.cell_ids[index.cell_ids >= 0],
+                          index.spill_ids])
+    assert sorted(ids.tolist()) == list(range(len(codes)))
+    ok = index.cell_ids >= 0
+    np.testing.assert_array_equal(index.cell_codes[ok],
+                                  codes[index.cell_ids[ok]])
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])
@@ -404,13 +414,19 @@ def test_full_probe_cell_grouped_equals_flat_bf16(built):
 
 
 def test_serve_search_unported_options_raise(built):
+    """mesh= (a cell-sharded index) still raises; decoded serving is
+    ported: serve_search and CudaIVFIndex take it (on the CPU with the
+    pallas mode), and an unknown serving raises."""
     port = _port_index(built[0])
     q = built[4][:2]
     with pytest.raises(NotImplementedError):
         ivf.serve_search(port, q, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        ivf.serve_search(port, q, serving="decoded", device="cpu")
-    with pytest.raises(NotImplementedError):
-        cuda_ivf.CudaIVFIndex(port, serving="decoded_int8", device="cpu")
+    s, i = ivf.serve_search(port, q, topk=5, nprobe=4, mode="pallas",
+                            serving="decoded", device="cpu")
+    assert s.shape == (2, 5) and (i >= 0).all()
+    index = cuda_ivf.CudaIVFIndex(port, serving="decoded_int8", device="cpu")
+    assert index.store[0] == "int8"
+    with pytest.raises(ValueError):
+        ivf.serve_search(port, q, serving="dense", device="cpu")
     s, i = ivf.serve_search(port, q[:0], topk=5, mode="pallas", device="cpu")
     assert s.shape == (0, 5) and i.shape == (0, 5)
