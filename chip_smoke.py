@@ -183,6 +183,24 @@ shows where it stopped:
                 tau, pass 2, sort; decode + loss; optimizer), peak memory,
                 validation s, K1's passes at Q=128, k=200 beside their
                 bounds
+  9a data_parallel
+                data parallelism on the one card: create_mesh() through the
+                REPCONC_* env contract at world size 1, a real NCCL group;
+                the corpus-sharded K1 search (ShardedCudaADCIndex) over
+                full_scan's 8,841,823 codes (1200 queries, top-1000) and
+                the cell-sharded IVF (ShardedCudaIVFIndex) over ivf_scale's
+                index (nprobe 64, bf16 and int8) equal to CudaADCIndex /
+                CudaIVFIndex, scores and ids; run_repconc_eval with and
+                without --data_parallel over 8,192 of main_path's docs
+                (in-process, the hash tokenizer patched in): the same
+                run.tsv; one stage-1 and one stage-2 step from
+                train_stage1's weights with mesh= and without, held to the
+                step bars (the max gaps printed, expected 0); then the
+                W = 2 and 4 partitions in one process (local_mesh), each
+                rank's local part merged by merge_topk: scores bit-equal to
+                the unsharded searches, ids but for exact ties; the times
+                of the sharded search at world 1, the gather and merge,
+                and the stage-1 step with mesh=; the group destroyed
   9b stage1_scale
                 the reference's production stage-1 step (bert-base, M=48,
                 4096 queries x 12 docs, GradCache chunks of 128) in bf16
@@ -2829,6 +2847,312 @@ def phase_train_stage2(dev, stage1_model):
                 shape={"Q": batch_size, "N": N, "M": M, "K": K, "topk": k})
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def world1_nccl_mesh():
+    """create_mesh() through the REPCONC_* env contract at world size 1: a
+    real NCCL process group on the one card, destroyed on exit, the env
+    restored."""
+    import torch.distributed as dist
+    from repconc_tpu_torch.core import distributed
+    from repconc_tpu_torch.core.mesh import create_mesh
+
+    env = {distributed.ENV_COORDINATOR: f"127.0.0.1:{free_port()}",
+           distributed.ENV_NUM_PROCESSES: "1",
+           distributed.ENV_PROCESS_ID: "0"}
+    os.environ.update(env)
+    try:
+        mesh = create_mesh()
+        check(mesh.backend == "nccl" and mesh.size == 1 and mesh.rank == 0
+              and mesh.group is not None,
+              f"world-1 mesh through NCCL ({mesh.backend}, {mesh.size})")
+        yield mesh
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+
+
+def hold_merged(what: str, s, i, s0, i0) -> None:
+    """A sharded top-k (s, i) against the unsharded one (s0, i0): scores
+    bit for bit, the ids above the cut equal as sets, and an id different
+    only where its score ties a neighbour's."""
+    import torch
+
+    big = torch.iinfo(torch.long).max
+    above = s0 > s0[:, -1:]
+    tied = (s0 == s0.roll(1, 1)) | (s0 == s0.roll(-1, 1))
+    check(torch.equal(s, s0) and bool(tied[i != i0].all())
+          and torch.equal(torch.sort(torch.where(above, i, big), 1).values,
+                          torch.sort(torch.where(above, i0, big), 1).values),
+          f"{what}: scores bit-equal to the unsharded search, ids but for "
+          f"exact ties")
+
+
+def step_result(model, metrics):
+    return ({k: float(v) for k, v in metrics.items()},
+            {n: (p.grad if p.grad is not None else
+                 p.new_zeros(p.shape)).cpu() for n, p in
+             model.named_parameters()},
+            {n: v.cpu() for n, v in model.state_dict().items()})
+
+
+def exact_gaps(a, b):
+    """The largest |difference| between two step results' metrics,
+    gradients and parameters (expected 0 at world size 1)."""
+    (m_a, g_a, p_a), (m_b, g_b, p_b) = a, b
+    return {"metrics": max(abs(m_a[k] - m_b[k]) for k in m_a),
+            "grads": max(float((g_a[n] - g_b[n]).abs().max()) for n in g_a),
+            "params": max(float((p_a[n].float() - p_b[n].float()).abs().max())
+                          for n in p_a)}
+
+
+def phase_data_parallel(dev, stage1_model, scale_index):
+    """Data parallelism on the one card (torch.distributed, NCCL). At world
+    size 1 through a real NCCL group (create_mesh under the env contract):
+    the corpus-sharded K1 search over full_scan's 8,841,823 codes (1200
+    queries, top-1000), the cell-sharded IVF over ivf_scale's index
+    (nprobe 64, bf16 and int8 LUTs), run_repconc_eval --data_parallel over
+    8,192 of main_path's docs, one stage-1 and one stage-2 step, each
+    against its unsharded counterpart. Then the W = 2 and 4 partitions in
+    one process (local_mesh): each rank's local part in turn, merged by
+    merge_topk, against the unsharded searches. Times (CUDA events): the
+    sharded search at world 1 against the unsharded, the gather and merge,
+    a stage-1 step with mesh= against the plain step."""
+    import copy
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from repconc_tpu_torch.cli import run_repconc_eval
+    from repconc_tpu_torch.core.mesh import local_mesh
+    from repconc_tpu_torch.index.cuda_adc import CudaADCIndex
+    from repconc_tpu_torch.index.cuda_ivf import (CudaIVFIndex,
+                                                  ShardedCudaIVFIndex)
+    from repconc_tpu_torch.models import adapters
+    from repconc_tpu_torch.models.repconc_model import (RepConcModel,
+                                                        init_random_,
+                                                        save_pretrained)
+    from repconc_tpu_torch.parallel.sharded import (ShardedCudaADCIndex,
+                                                    gather_merge, merge_topk)
+    from repconc_tpu_torch.train import stage1, stage2
+    from repconc_tpu_torch.train.data import (FinetuneCollator, QDRelDataset,
+                                              QueryCollator, QueryDataset,
+                                              batch_iterator)
+
+    t_phase = time.perf_counter()
+    M, K, D, Q, topk, N = 12, 256, 768, 1200, 1000, MSMARCO_PASSAGES
+    out = {"flat": {}, "ivf": {}, "partitions": {}}
+    reset_launches()
+    with world1_nccl_mesh() as mesh, tempfile.TemporaryDirectory() as tmp:
+        out["backend"] = mesh.backend
+        # K1 over full_scan's codes: world 1 against CudaADCIndex
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        codes = torch.randint(0, K, (N, M), generator=g, device=dev,
+                              dtype=torch.uint8)
+        cent = torch.randn((M, K, D // M), generator=g, device=dev)
+        queries = torch.randn((Q, D), generator=g, device=dev)
+        flat = CudaADCIndex(codes, cent, device=dev)
+        s0, i0 = flat.search_device(queries, topk)
+        w1 = ShardedCudaADCIndex(mesh, codes, cent)
+        s1, i1 = w1.search_device(queries, topk)
+        check(torch.equal(s1, s0) and torch.equal(i1, i0),
+              "world-1 corpus-sharded K1 search == CudaADCIndex (scores and "
+              "ids)")
+        local_s, local_i = w1.local_search(queries, topk)
+        out["flat"] = {
+            "unsharded_ms": time_ms(lambda: flat.search_device(queries, topk),
+                                    reps=5, warmup=1),
+            "sharded_w1_ms": time_ms(lambda: w1.search_device(queries, topk),
+                                     reps=5, warmup=1),
+            "local_ms": time_ms(lambda: w1.local_search(queries, topk),
+                                reps=5, warmup=1),
+            "gather_merge_ms": time_ms(lambda: gather_merge(
+                mesh, local_s, local_i, topk), reps=10)}
+        del w1, flat, local_s, local_i
+        for W in (2, 4):
+            parts = []
+            for r in range(W):
+                ix = ShardedCudaADCIndex(local_mesh(r, W, dev), codes, cent)
+                parts.append(ix.local_search(queries, topk))
+                del ix
+            s, i = merge_topk(*zip(*parts), topk)
+            hold_merged(f"K1 over {N} codes at W={W}", s, i, s0, i0)
+            out["partitions"][f"flat_w{W}"] = {
+                "ids_equal": bool(torch.equal(i, i0)),
+                "n_local": -(-N // W)}
+            del parts, s, i
+        del codes, cent, queries, s0, i0, s1, i1
+        torch.cuda.empty_cache()
+
+        # K2 / K3 over ivf_scale's index: world 1 and W = 2, 4
+        _, cent, queries = ivf_scale_inputs(dev)
+        base = CudaIVFIndex(scale_index, device=dev)
+        w1 = ShardedCudaIVFIndex(mesh, scale_index)
+        for lut in ("bf16", "int8"):
+            s0, i0 = base.search_device(queries, topk, 64, lut)
+            s1, i1 = w1.search_device(queries, topk, 64, lut)
+            check(torch.equal(s1, s0) and torch.equal(i1, i0),
+                  f"world-1 cell-sharded IVF ({lut}) == CudaIVFIndex")
+            out["ivf"][lut] = {
+                "unsharded_ms": time_ms(lambda: base.search_device(
+                    queries, topk, 64, lut), reps=3, warmup=1),
+                "sharded_w1_ms": time_ms(lambda: w1.search_device(
+                    queries, topk, 64, lut), reps=3, warmup=1)}
+            for W in (2, 4):
+                ranks = [ShardedCudaIVFIndex(local_mesh(r, W, dev),
+                                             scale_index) for r in range(W)]
+                parts = [ix.local_search(queries, topk, 64, lut)
+                         for ix in ranks]
+                s, i = merge_topk(*zip(*parts), parts[0][0].shape[1])
+                s, i = ranks[0].merge_spill(s, i, queries, topk)
+                hold_merged(f"IVF ({lut}, nprobe 64) at W={W}", s, i, s0, i0)
+                out["partitions"][f"ivf_{lut}_w{W}"] = {
+                    "ids_equal": bool(torch.equal(i, i0)),
+                    "cells_per_rank": [int(ix.cell_codes.shape[0])
+                                       for ix in ranks]}
+                del ranks, parts, s, i
+        out["ivf"]["spill_share"] = len(scale_index.spill_ids) / N
+        del base, w1, cent, queries
+        torch.cuda.empty_cache()
+
+        # run_repconc_eval with and without --data_parallel, in-process
+        config = m12_config()
+        tok = HashTokenizer(config.encoder.vocab_size)
+        model_dir = os.path.join(tmp, "model")
+        save_pretrained(model_dir, init_random_(
+            RepConcModel(config), torch.Generator().manual_seed(SEED),
+            std=0.02))
+        corpus, qs, qrels = synthetic_data()
+        corpus = dict(list(corpus.items())[:8192])
+        os.makedirs(os.path.join(tmp, "cli"))
+        paths = write_training_files(os.path.join(tmp, "cli"), corpus, qs,
+                                     qrels)
+        runs, secs = {}, {}
+        with mock.patch.object(adapters, "load_adapter_tokenizer",
+                               lambda *a, **k: tok):
+            for name, extra in (("plain", []), ("dp", ["--data_parallel"])):
+                args = ["--model_name_or_path", model_dir,
+                        "--corpus_path", paths["corpus"],
+                        "--query_path", paths["queries"],
+                        "--qrel_path", paths["qrels"],
+                        "--out_corpus_dir", os.path.join(tmp, name + "_c"),
+                        "--out_query_dir", os.path.join(tmp, name + "_q"),
+                        "--max_seq_length", "128", "--topk", "1000",
+                        "--device", dev.type] + extra
+                t0 = time.perf_counter()
+                run_repconc_eval.main(args)
+                secs[name] = time.perf_counter() - t0
+                with open(os.path.join(tmp, name + "_q", "run.tsv")) as f:
+                    runs[name] = f.read()
+        check(runs["plain"] == runs["dp"] and len(runs["plain"]) > 0,
+              "run_repconc_eval --data_parallel at world 1 writes the "
+              "one-process run.tsv")
+        check(np.array_equal(np.load(os.path.join(tmp, "plain_c", "codes.npy")),
+                             np.load(os.path.join(tmp, "dp_c", "codes.npy"))),
+              "the --data_parallel corpus codes equal the one-process codes")
+        out["cli"] = {"docs": len(corpus), "queries": len(qs),
+                      "plain_s": secs["plain"], "data_parallel_s": secs["dp"]}
+
+        # one stage-1 step (the CLI's defaults, dropout on) and one stage-2
+        # step, from train_stage1's weights, with mesh= and without
+        os.makedirs(os.path.join(tmp, "stage1"))
+        tpaths = write_training_files(os.path.join(tmp, "stage1"),
+                                      *synthetic_data(n_docs=8192,
+                                                      n_queries=1024,
+                                                      seed=SEED + 1))
+        dataset = QDRelDataset(tpaths["qrels"], tpaths["queries"],
+                               tpaths["corpus"], negative="random",
+                               negative_per_query=1, sep_token=tok.sep_token)
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in next(
+            batch_iterator(dataset, FinetuneCollator(tok, 16, 128), 64,
+                           seed=SEED)).items()}
+        # "again": the plain step a second time, the card's own run-to-run
+        # floor (the embedding and gather backwards accumulate with atomics)
+        hp = stage1.Stage1Hparams(total_steps=10)
+        steps, fns = {}, {}
+        for name, m in (("plain", None), ("mesh", mesh), ("again", None)):
+            model = copy.deepcopy(stage1_model)
+            tx = stage1.make_optimizer(hp, model)
+            fns[name] = stage1.make_train_step(model, hp, tx, m)
+            steps[name] = step_result(model, fns[name](
+                batch, torch.Generator().manual_seed(SEED)))
+        gaps1 = step_gaps(steps["plain"], steps["mesh"], hp.learning_rate,
+                          hp.centroid_learning_rate)
+        check_step_gaps(gaps1, "world-1 stage-1 step with mesh=")
+        seeds = torch.Generator().manual_seed(SEED)
+        out["stage1_step"] = {
+            "plain_ms": time_ms(lambda: fns["plain"](batch, seeds), reps=3,
+                                warmup=1),
+            "mesh_ms": time_ms(lambda: fns["mesh"](batch, seeds), reps=3,
+                               warmup=1),
+            "max_abs_gap": exact_gaps(steps["plain"], steps["mesh"]),
+            "plain_again_gap": exact_gaps(steps["plain"], steps["again"]),
+            "bars": gaps1}
+        del steps, fns, model, tx
+        torch.cuda.empty_cache()
+
+        g = torch.Generator(device=dev).manual_seed(SEED + 5)
+        codes = torch.randint(0, K, (N, M), generator=g, device=dev,
+                              dtype=torch.uint8)
+        index = CudaADCIndex(codes, stage1_model.centroids.detach(),
+                             device=dev)
+        del codes
+        os.makedirs(os.path.join(tmp, "stage2"))
+        qpaths = write_query_files(os.path.join(tmp, "stage2"), 256, N, 30,
+                                   SEED + 7)
+        qset = QueryDataset(qpaths["qrels"], qpaths["queries"],
+                            np.arange(N, dtype=np.int64))
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in next(
+            batch_iterator(qset, QueryCollator(tok, 32), 128,
+                           seed=SEED)).items()}
+        hp2 = stage2.Stage2Hparams(total_steps=10)
+        steps = {}
+        for name, m in (("plain", None), ("mesh", mesh), ("again", None)):
+            model = copy.deepcopy(stage1_model)
+            tx = stage1.make_optimizer(hp2.as_stage1(), model)
+            step = stage2.make_train_step(model, hp2, tx, index.codes,
+                                          index.N, mesh=m)
+            steps[name] = step_result(model, step(
+                batch, torch.Generator().manual_seed(SEED)))
+        gaps2 = step_gaps(steps["plain"], steps["mesh"], hp2.learning_rate,
+                          hp2.centroid_learning_rate)
+        check_step_gaps(gaps2, "world-1 stage-2 step with mesh=")
+        out["stage2_step"] = {
+            "max_abs_gap": exact_gaps(steps["plain"], steps["mesh"]),
+            "plain_again_gap": exact_gaps(steps["plain"], steps["again"]),
+            "bars": gaps2}
+        del steps, model, tx, index
+        torch.cuda.empty_cache()
+    launches = launch_counts()
+    check(launches["adc_group_max"] > 0 and launches["adc_filter"] > 0
+          and all(launches[f"ivf_{p}_{k}"] > 0 for p in ("group_max", "filter")
+                  for k in ("bf16", "i8")),
+          f"the phase ran K1's and K2 / K3's passes ({launches})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit("data_parallel", launches=launches, **out)
+    print("data_parallel flat " + " ".join(
+        f"{k} {v:.4f}" for k, v in out["flat"].items())
+        + " ivf " + " ".join(f"{lut}_{k} {v:.4f}" for lut in ("bf16", "int8")
+                             for k, v in out["ivf"][lut].items())
+        + " stage1_plain_ms {plain_ms:.3f} stage1_mesh_ms {mesh_ms:.3f}"
+        .format(**out["stage1_step"]), flush=True)
+    for st in ("stage1_step", "stage2_step"):
+        print(f"data_parallel {st} mesh-vs-plain gap "
+              f"{out[st]['max_abs_gap']} plain-vs-plain gap "
+              f"{out[st]['plain_again_gap']}", flush=True)
+    print(card_line(), flush=True)
+    return dict(launches=launches)
+
+
 def m12_hf_config():
     """The HF config.json of the M=12 checkpoint's encoder (the keys of
     artifacts/r5h_export_hf.tar's export_hf/config.json that the port
@@ -3385,7 +3709,7 @@ def main() -> int:
     ivf_runs, main_ivf_index = phase_ivf_main_path(dev, main_path)
     decoded = phase_ivf_decoded(dev, main_path, main_ivf_index, scale_index,
                                 balanced.pop("index"))
-    del scale_index, main_ivf_index
+    del main_ivf_index
     sweep = phase_ivf_sweep(dev, main_path)
     phase_bf16_main_path(dev, main_path)
     del main_path["cpu_model"], main_path["texts"]
@@ -3393,7 +3717,10 @@ def main() -> int:
         front = phase_dense_front(dev, pipeline_root)
         phase_dense_scale(dev)
         train_run = phase_train_stage1(dev, front["warmup_dir"])
-    jpq_run = phase_train_stage2(dev, train_run.pop("model"))
+    stage1_model = train_run.pop("model")
+    jpq_run = phase_train_stage2(dev, stage1_model)
+    parallel = phase_data_parallel(dev, stage1_model, scale_index)
+    del stage1_model, scale_index
     phase_stage1_scale(dev)
 
     # launches on the paths: both passes of the K1 top-k on the flat main
@@ -3413,7 +3740,7 @@ def main() -> int:
                 *(r["launches"] for r in ivf_scale.values()),
                 jpq_run["launches"], balanced["launches"],
                 decoded["launches"], decoded["scale_launches"],
-                *sweep.values()]
+                *sweep.values(), parallel["launches"]]
     launches = {
         "adc_scan": (sum(r["adc_scan"] for r in on_paths), None),
         "adc_group_max": (main_path["launches"]["adc_group_max"]
@@ -3478,12 +3805,15 @@ def main() -> int:
         "run_ivf_sweep": {lut: {k: r[k] for k in ("adc_group_max",
                                                   "adc_filter")}
                           for lut, r in sweep.items()},
+        "data_parallel": {k: parallel["launches"][k]
+                          for k in ("adc_group_max", "adc_filter")},
     }
     ivf_elsewhere = {  # launches of the IVF passes outside ivf_main_path
         "ivf_scale": {lut: r["launches"] for lut, r in ivf_scale.items()},
         "ivf_balanced": balanced["launches"],
         "ivf_decoded_at_scale": decoded["scale_launches"],
         "run_ivf_sweep": sweep,
+        "data_parallel": parallel["launches"],
     }
     check(all(v > 0 for v in elsewhere["full_scan"].values())
           and all(v > 0 for r in elsewhere["ivf_scale"].values()

@@ -18,8 +18,11 @@ raises). The artifacts are the JAX CLI's, each skip-if-exists:
                 metric.json
 
 The corpus embeddings feed the OPQ warm-up (run_warmup).
---token_cache_dir reads a run_pretokenize cache. --data_parallel raises
-NotImplementedError naming its ROADMAP.md item.
+--token_cache_dir reads a run_pretokenize cache. --data_parallel joins the
+process group of the env contract (core/distributed.py; under torchrun or
+REPCONC_*, one process per GPU), encodes over its ranks and searches the
+corpus sharded over them (ShardedFlatIndex); rank 0 alone writes the
+artifacts (run_dense_eval.py:95-100,155-158).
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from repconc_tpu_torch.core.checkpoint import atomic_np_save
 from repconc_tpu_torch.core.config import (METRIC_CENTROID_COS, METRIC_IP,
                                            RepConcConfig)
 from repconc_tpu_torch.core.device import resolve_device
+from repconc_tpu_torch.core.mesh import create_mesh
 from repconc_tpu_torch.core.logging_utils import setup_logging
 from repconc_tpu_torch.eval.encode import (clear_encode_cache, encode_corpus,
                                            encode_queries)
@@ -43,6 +47,7 @@ from repconc_tpu_torch.eval.run_io import (
 )
 from repconc_tpu_torch.eval.trec import evaluate_run
 from repconc_tpu_torch.index.flat import batch_flat_search
+from repconc_tpu_torch.parallel.sharded import sharded_batch_flat_search
 
 logger = logging.getLogger(__name__)
 
@@ -74,7 +79,8 @@ def build_parser():
     parser.add_argument("--save_corpus_embed", action="store_true")
     parser.add_argument("--save_query_embed", action="store_true")
     parser.add_argument("--data_parallel", action="store_true",
-                        help="not ported yet: raises")
+                        help="encode and search over the ranks of the "
+                             "process group (one process per GPU)")
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda (default) or cpu")
     return parser
@@ -105,12 +111,11 @@ def load_model(model_dir: str, adapter=None, pooling=None,
 def main(argv=None):
     args = build_parser().parse_args(argv)
     setup_logging()
-    if args.data_parallel:
-        raise NotImplementedError("--data_parallel is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 10 (multi-GPU))")
     from repconc_tpu_torch.models.adapters import load_adapter_tokenizer
 
-    device = resolve_device(args.device)
+    mesh = create_mesh(args.device) if args.data_parallel else None
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    main_rank = mesh is None or mesh.is_main
     tokenizer = load_adapter_tokenizer(args.model_name_or_path, args.adapter)
     model = load_model(args.model_name_or_path, args.adapter, args.pooling,
                        args.similarity_metric, device)
@@ -131,8 +136,9 @@ def main(argv=None):
             corpus_loader(args.corpus_path), model, tokenizer,
             args.max_seq_length, batch_size=args.per_device_eval_batch_size,
             output="continuous_embedding", device=device,
-            cache_dir=shard_cache, token_cache_dir=args.token_cache_dir)
-        if args.save_corpus_embed:
+            cache_dir=shard_cache, token_cache_dir=args.token_cache_dir,
+            mesh=mesh)
+        if args.save_corpus_embed and main_rank:
             atomic_np_save(emb_path, corpus_embeds)
             atomic_np_save(ids_path, corpus_ids)
             clear_encode_cache(shard_cache)
@@ -148,8 +154,8 @@ def main(argv=None):
         query_embeds, query_ids = encode_queries(
             query_loader(args.query_path), model, tokenizer,
             args.max_seq_length, batch_size=args.per_device_eval_batch_size,
-            device=device)
-        if args.save_query_embed:
+            device=device, mesh=mesh)
+        if args.save_query_embed and main_rank:
             os.makedirs(args.out_query_dir, exist_ok=True)
             atomic_np_save(qemb_path, query_embeds)
             atomic_np_save(qids_path, query_ids)
@@ -158,10 +164,17 @@ def main(argv=None):
     if os.path.exists(out_metric_path):
         logger.info("Skip search: metric.json already exists")
         return
+    if mesh is None:
+        scores, topk_ids = batch_flat_search(
+            query_ids, query_embeds, corpus_ids, corpus_embeds, topk=args.topk,
+            batch_size=args.search_batch, device=device)
+    else:
+        scores, topk_ids = sharded_batch_flat_search(
+            mesh, query_ids, query_embeds, corpus_ids, corpus_embeds,
+            topk=args.topk, batch_size=args.search_batch)
+    if not main_rank:
+        return
     os.makedirs(args.out_query_dir, exist_ok=True)
-    scores, topk_ids = batch_flat_search(
-        query_ids, query_embeds, corpus_ids, corpus_embeds, topk=args.topk,
-        batch_size=args.search_batch, device=device)
     out_run_path = os.path.join(args.out_query_dir, "run.tsv")
     write_run_tsv(out_run_path, query_ids, scores, topk_ids)
 

@@ -12,8 +12,12 @@ is the JAX package's, so either package searches caches the other wrote:
   out_query_dir/codes.npy (fp32 query embeddings), qids.npy, run.tsv,
                 metric.json, timings.json
 
-Every artifact is skip-if-exists. Options of the JAX CLI that the port does
-not have yet raise NotImplementedError naming their ROADMAP.md item.
+Every artifact is skip-if-exists. --data_parallel joins the process group
+of the env contract (core/distributed.py; torchrun or REPCONC_*, one process
+per GPU), encodes over its ranks and searches sharded over them: the flat
+index by corpus rows (sharded_batch_adc_search), the IVF by cells
+(ShardedCudaIVFIndex); rank 0 alone writes the artifacts
+(run_repconc_eval.py:112-117,229-247).
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import numpy as np
 
 from repconc_tpu_torch.core.checkpoint import atomic_np_save
 from repconc_tpu_torch.core.device import resolve_device
+from repconc_tpu_torch.core.mesh import create_mesh
 from repconc_tpu_torch.core.profiling import Stopwatch
 from repconc_tpu_torch.eval.encode import (clear_encode_cache, encode_corpus,
                                            encode_queries)
@@ -38,6 +43,7 @@ from repconc_tpu_torch.eval.trec import evaluate_run
 from repconc_tpu_torch.index.adc import batch_adc_search
 from repconc_tpu_torch.index.ivf import (IVFIndex, build_ivf_from_codes,
                                          serve_search)
+from repconc_tpu_torch.parallel.sharded import sharded_batch_adc_search
 
 logger = logging.getLogger(__name__)
 
@@ -78,24 +84,14 @@ def build_parser():
                              "int8 reconstructions resident, the cell-grouped "
                              "path on any device)")
     parser.add_argument("--lut_dtype", default="bf16", choices=["bf16", "int8"])
-    parser.add_argument("--data_parallel", action="store_true")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="encode and search over the ranks of the "
+                             "process group (one process per GPU)")
     parser.add_argument("--corpus_embed_path", default=None,
                         help="DEPRECATED, ignored (as in the JAX CLI)")
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda (default) or cpu")
     return parser
-
-
-def check_ported(args) -> None:
-    """Options whose paths the port does not have yet raise; nothing falls
-    back to another path."""
-    pending = [
-        (args.data_parallel, "--data_parallel", "Queue 1 item 10 (multi-GPU)"),
-    ]
-    for hit, flag, item in pending:
-        if hit:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP.md, {item})")
 
 
 def resolve_paths(args):
@@ -118,7 +114,7 @@ def load_model_and_tokenizer(model_dir: str, adapter, device):
 
 
 def search_ivf(codes, corpus_ids, query_embeds, centroids, out_corpus_dir,
-               args, device, stopwatch):
+               args, device, stopwatch, mesh=None):
     """The --index_type ivf branch (repconc_tpu/cli/run_repconc_eval.py:
     184-240): load out_corpus_dir/ivf_index.npz, or build it from the codes
     when it is missing, unreadable or stale (another nlist, another corpus
@@ -126,41 +122,57 @@ def search_ivf(codes, corpus_ids, query_embeds, centroids, out_corpus_dir,
 
     args needs nlist, nprobe, topk, search_batch, serving and lut_dtype.
     Returns (scores, docids); a -1 pad row maps to corpus_ids[0] with a
-    -inf score, which write_run_tsv drops.
+    -inf score, which write_run_tsv drops. mesh: rank 0 loads or builds
+    and saves the index, the other ranks load its file after a barrier,
+    and the search is cell-sharded over the ranks.
     """
-    ivf_path = os.path.join(out_corpus_dir, "ivf_index.npz")
-    nlist = min(args.nlist, codes.shape[0])
     with stopwatch("build_ivf"):
-        ivf = None
-        if os.path.exists(ivf_path):
-            try:
+        if mesh is None or mesh.is_main:
+            ivf = load_or_build_ivf(codes, centroids, out_corpus_dir, args,
+                                    device, stopwatch)
+        if mesh is not None:
+            mesh.barrier()
+            if not mesh.is_main:
                 ivf = IVFIndex.load(out_corpus_dir)
-            except (OSError, ValueError, TypeError, KeyError, EOFError,
-                    zipfile.BadZipFile) as e:  # a partial npz from a killed run
-                logger.warning("cached ivf_index.npz unreadable (%s): "
-                               "rebuilding", e)
-            if ivf is not None and (ivf.nlist != nlist
-                                    or ivf.ntotal != codes.shape[0]):
-                logger.warning("cached ivf_index.npz is stale (nlist %d vs %d, "
-                               "ntotal %d vs %d docs): rebuilding", ivf.nlist,
-                               nlist, ivf.ntotal, codes.shape[0])
-                ivf = None
-        if ivf is None:
-            # the coarse quantizer trains on PQ reconstructions of the codes
-            # being served (run_repconc_eval.py:211-228)
-            ivf = build_ivf_from_codes(codes, centroids, nlist=args.nlist,
-                                       device=device, stopwatch=stopwatch)
-            ivf.save(out_corpus_dir)
     ivf.set_centroids(centroids)
     decoded = args.serving in ("decoded", "decoded_int8")
     with stopwatch("search"):
         scores, row_ids = serve_search(
             ivf, query_embeds, topk=args.topk, nprobe=args.nprobe,
             search_batch=args.search_batch,
-            mode="pallas" if decoded else args.serving,
+            mode="pallas" if decoded else args.serving, mesh=mesh,
             lut_dtype=args.lut_dtype,
             serving=args.serving if decoded else "adc", device=device)
     return scores, corpus_ids[np.maximum(row_ids, 0)]
+
+
+def load_or_build_ivf(codes, centroids, out_corpus_dir, args, device,
+                      stopwatch) -> IVFIndex:
+    """out_corpus_dir/ivf_index.npz, rebuilt from the codes (and saved)
+    when it is missing, unreadable or stale."""
+    ivf_path = os.path.join(out_corpus_dir, "ivf_index.npz")
+    nlist = min(args.nlist, codes.shape[0])
+    ivf = None
+    if os.path.exists(ivf_path):
+        try:
+            ivf = IVFIndex.load(out_corpus_dir)
+        except (OSError, ValueError, TypeError, KeyError, EOFError,
+                zipfile.BadZipFile) as e:  # a partial npz from a killed run
+            logger.warning("cached ivf_index.npz unreadable (%s): "
+                           "rebuilding", e)
+        if ivf is not None and (ivf.nlist != nlist
+                                or ivf.ntotal != codes.shape[0]):
+            logger.warning("cached ivf_index.npz is stale (nlist %d vs %d, "
+                           "ntotal %d vs %d docs): rebuilding", ivf.nlist,
+                           nlist, ivf.ntotal, codes.shape[0])
+            ivf = None
+    if ivf is None:
+        # the coarse quantizer trains on PQ reconstructions of the codes
+        # being served (run_repconc_eval.py:211-228)
+        ivf = build_ivf_from_codes(codes, centroids, nlist=args.nlist,
+                                   device=device, stopwatch=stopwatch)
+        ivf.save(out_corpus_dir)
+    return ivf
 
 
 def main(argv=None):
@@ -168,8 +180,9 @@ def main(argv=None):
     logging.basicConfig(
         format="%(asctime)s - %(levelname)s - %(name)s - %(message)s",
         datefmt="%m/%d/%Y %H:%M:%S", level=logging.INFO)
-    check_ported(args)
-    device = resolve_device(args.device)
+    mesh = create_mesh(args.device) if args.data_parallel else None
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    main_rank = mesh is None or mesh.is_main
     doc_dir, query_dir = resolve_paths(args)
     sw = Stopwatch()
 
@@ -197,11 +210,12 @@ def main(argv=None):
                 corpus, model, tokenizer, args.max_seq_length,
                 batch_size=args.per_device_eval_batch_size, output="code",
                 device=device, stopwatch=sw, cache_dir=shard_cache,
-                token_cache_dir=args.token_cache_dir)
+                token_cache_dir=args.token_cache_dir, mesh=mesh)
         del model
-        atomic_np_save(codes_path, codes)
-        atomic_np_save(cids_path, corpus_ids)
-        clear_encode_cache(shard_cache)
+        if main_rank:
+            atomic_np_save(codes_path, codes)
+            atomic_np_save(cids_path, corpus_ids)
+            clear_encode_cache(shard_cache)
 
     # --- query embeddings (cached) ---
     qemb_path = os.path.join(args.out_query_dir, "codes.npy")  # reference name
@@ -219,10 +233,12 @@ def main(argv=None):
         with sw("encode_queries"):
             query_embeds, query_ids = encode_queries(
                 queries, q_model, q_tokenizer, args.max_seq_length,
-                batch_size=args.per_device_eval_batch_size, device=device)
-        os.makedirs(args.out_query_dir, exist_ok=True)
-        atomic_np_save(qemb_path, query_embeds)
-        atomic_np_save(qids_path, query_ids)
+                batch_size=args.per_device_eval_batch_size, device=device,
+                mesh=mesh)
+        if main_rank:
+            os.makedirs(args.out_query_dir, exist_ok=True)
+            atomic_np_save(qemb_path, query_embeds)
+            atomic_np_save(qids_path, query_ids)
 
     out_metric_path = os.path.join(args.out_query_dir, "metric.json")
     if os.path.exists(out_metric_path):
@@ -234,12 +250,20 @@ def main(argv=None):
     if args.index_type == "ivf":
         scores, topk_ids = search_ivf(codes, corpus_ids, query_embeds,
                                       centroids, args.out_corpus_dir, args,
-                                      device, sw)
+                                      device, sw, mesh)
+    elif mesh is not None:
+        with sw("search"):
+            scores, row_ids = sharded_batch_adc_search(
+                mesh, query_embeds, codes, centroids, topk=args.topk,
+                batch_size=args.search_batch)
+        topk_ids = corpus_ids[row_ids]
     else:
         with sw("search"):
             scores, topk_ids = batch_adc_search(
                 query_ids, query_embeds, corpus_ids, codes, centroids,
                 topk=args.topk, batch_size=args.search_batch, device=device)
+    if not main_rank:
+        return
     out_run_path = os.path.join(args.out_query_dir, "run.tsv")
     write_run_tsv(out_run_path, query_ids, scores, topk_ids)
     logger.info("phase wall-clock (s): %s",

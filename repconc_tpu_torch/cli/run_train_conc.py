@@ -68,7 +68,8 @@ def build_parser():
     parser.add_argument("--save_steps", type=int, default=0)
     parser.add_argument("--seed", type=int, default=2022)
     parser.add_argument("--data_parallel", action="store_true",
-                        help="not ported yet: raises")
+                        help="train over the ranks of the process group (one "
+                             "process per GPU); the batch size is global")
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda (default) or cpu")
     return parser
@@ -77,12 +78,9 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
     setup_logging()
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel is not ported yet (ROADMAP.md, Queue 1 item 10 "
-            "(multi-GPU))")
 
     from repconc_tpu_torch.core.device import resolve_device
+    from repconc_tpu_torch.core.mesh import train_mesh
     from repconc_tpu_torch.eval.run_io import load_corpus, load_queries
     from repconc_tpu_torch.eval.trec import parse_qrels
     from repconc_tpu_torch.models import repconc_model
@@ -91,7 +89,9 @@ def main(argv=None):
     from repconc_tpu_torch.train.data import (FinetuneCollator, QDRelDataset,
                                               batch_iterator)
 
-    dev = resolve_device(args.device)
+    mesh = (train_mesh(args.device, args.per_device_train_batch_size)
+            if args.data_parallel else None)
+    dev = resolve_device(args.device) if mesh is None else mesh.device
     model = repconc_model.from_pretrained(args.model_name_or_path, device=dev)
     config = model.config
     if args.sk_epsilon is not None:
@@ -151,7 +151,8 @@ def main(argv=None):
     batches = batch_iterator(dataset, collator, args.per_device_train_batch_size,
                              seed=args.seed)
     out = stage1.train(model, batches, hp, args.output_dir,
-                       tokenizer=tokenizer, valid_set=valid_set, device=dev)
+                       tokenizer=tokenizer, valid_set=valid_set, device=dev,
+                       mesh=mesh)
     logger.info("finished at step %d (best %.5f)", out["step"], out["best_metric"])
     return out
 

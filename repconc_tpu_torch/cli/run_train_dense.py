@@ -66,7 +66,8 @@ def build_parser():
     parser.add_argument("--save_steps", type=int, default=0)
     parser.add_argument("--seed", type=int, default=2022)
     parser.add_argument("--data_parallel", action="store_true",
-                        help="not ported yet: raises")
+                        help="train over the ranks of the process group (one "
+                             "process per GPU); the batch size is global")
     parser.add_argument("--device", default="cuda",
                         help="torch device: cuda (default) or cpu")
     return parser
@@ -93,12 +94,9 @@ def export_best(output_dir: str, src_model_dir: str, device) -> str:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     setup_logging()
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel is not ported yet (ROADMAP.md, Queue 1 item 10 "
-            "(multi-GPU))")
 
     from repconc_tpu_torch.core.device import resolve_device
+    from repconc_tpu_torch.core.mesh import train_mesh
     from repconc_tpu_torch.eval.run_io import load_corpus, load_queries
     from repconc_tpu_torch.eval.trec import parse_qrels
     from repconc_tpu_torch.models import repconc_model
@@ -107,7 +105,9 @@ def main(argv=None):
     from repconc_tpu_torch.train.data import (FinetuneCollator, QDRelDataset,
                                               batch_iterator)
 
-    dev = resolve_device(args.device)
+    mesh = (train_mesh(args.device, args.per_device_train_batch_size)
+            if args.data_parallel else None)
+    dev = resolve_device(args.device) if mesh is None else mesh.device
     # M is a placeholder: with quantize=False no codebook is in the graph
     model = repconc_model.from_dense_encoder(
         args.model_name_or_path, MCQ_M=1,
@@ -154,8 +154,10 @@ def main(argv=None):
     batches = batch_iterator(dataset, collator, args.per_device_train_batch_size,
                              seed=args.seed)
     out = stage1.train(model, batches, hp, args.output_dir, tokenizer=tokenizer,
-                       valid_set=valid_set, device=dev)
+                       valid_set=valid_set, device=dev, mesh=mesh)
     logger.info("finished at step %d (best %.5f)", out["step"], out["best_metric"])
+    if mesh is not None and not mesh.is_main:
+        return out
     export_dir = export_best(args.output_dir, args.model_name_or_path, dev)
     logger.info("exported HF checkpoint to %s", export_dir)
     return out

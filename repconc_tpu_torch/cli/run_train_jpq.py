@@ -56,7 +56,8 @@ def build_parser():
     parser.add_argument("--dynamic_topk_negative", type=int, default=200)
     parser.add_argument("--temperature", type=float, default=1.0)
     parser.add_argument("--data_parallel", action="store_true",
-                        help="not ported yet: raises")
+                        help="train over the ranks of the process group (one "
+                             "process per GPU); the batch size is global")
     parser.add_argument("--logging_steps", type=int, default=20)
     parser.add_argument("--eval_steps", type=int, default=0)
     parser.add_argument("--save_steps", type=int, default=0)
@@ -69,12 +70,9 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
     setup_logging()
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel is not ported yet (ROADMAP.md, Queue 1 item 10 "
-            "(multi-GPU))")
 
     from repconc_tpu_torch.core.device import resolve_device
+    from repconc_tpu_torch.core.mesh import train_mesh
     from repconc_tpu_torch.eval.run_io import load_queries
     from repconc_tpu_torch.eval.trec import parse_qrels
     from repconc_tpu_torch.models import repconc_model
@@ -83,7 +81,9 @@ def main(argv=None):
     from repconc_tpu_torch.train.data import (QueryCollator, QueryDataset,
                                               batch_iterator)
 
-    dev = resolve_device(args.device)
+    mesh = (train_mesh(args.device, args.per_device_train_batch_size)
+            if args.data_parallel else None)
+    dev = resolve_device(args.device) if mesh is None else mesh.device
     model = repconc_model.from_pretrained(args.model_name_or_path, device=dev)
     tokenizer = load_adapter_tokenizer(
         args.model_name_or_path, args.adapter or model.config.encoder.model_type)
@@ -125,7 +125,8 @@ def main(argv=None):
     batches = batch_iterator(dataset, collator, args.per_device_train_batch_size,
                              seed=args.seed)
     out = stage2.train(model, codes, batches, hp, args.output_dir,
-                       tokenizer=tokenizer, valid_set=valid_set, device=dev)
+                       tokenizer=tokenizer, valid_set=valid_set, device=dev,
+                       mesh=mesh)
     logger.info("finished at step %d (best %.5f)", out["step"], out["best_metric"])
     return out
 

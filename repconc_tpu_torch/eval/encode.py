@@ -21,6 +21,7 @@ Adapter tokenizer protocol: if the tokenizer's __call__ accepts
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 import inspect
 import json
@@ -35,6 +36,7 @@ import torch
 
 from repconc_tpu_torch.core.device import resolve_device
 from repconc_tpu_torch.core.profiling import Stopwatch
+from repconc_tpu_torch.parallel.sharded import sharded_encode
 
 logger = logging.getLogger(__name__)
 
@@ -207,7 +209,8 @@ def encode_texts(texts, model, tokenizer, max_seq_length: int,
                  batch_size: int = 256, output: str = "continuous_embedding",
                  input_text_type: str = "doc", device="cuda",
                  stopwatch: Stopwatch = None, verbose: bool = False,
-                 token_cache: Optional[TokenCache] = None) -> np.ndarray:
+                 token_cache: Optional[TokenCache] = None,
+                 mesh=None) -> np.ndarray:
     """Encode texts to codes (uint8, output="code") or fp32 embeddings.
 
     `model` is a RepConcModel already on `device`; it encodes without
@@ -219,10 +222,15 @@ def encode_texts(texts, model, tokenizer, max_seq_length: int,
     four (encode.py:293-359); this thread uploads, encodes and copies back,
     so every CUDA call stays in the caller's thread. "tokenize" is timed in
     the producer and "device_encode" here: when they overlap, the wall
-    clock is near the larger of the two."""
+    clock is near the larger of the two.
+
+    mesh (core/mesh.py): every rank tokenizes the whole batch, encodes its
+    contiguous block of it and gathers the blocks
+    (parallel/sharded.py::sharded_encode), so every rank returns the whole
+    output; the device is the mesh's."""
     if output not in ("code", "continuous_embedding"):
         raise ValueError(f"unknown output {output!r}")
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     model_dev = next(model.parameters()).device
     if model_dev != dev:
         raise ValueError(f"model is on {model_dev}, encoding asked for {dev}")
@@ -239,6 +247,13 @@ def encode_texts(texts, model, tokenizer, max_seq_length: int,
                         dtype=np.uint8 if output == "code" else np.float32)
     sw = stopwatch if stopwatch is not None else Stopwatch()
     pad_id = config.encoder.pad_token_id
+    if output == "code":
+        def encode_fn(ids_t, mask_t):
+            return model(ids_t, mask_t, return_code=True).discrete_codes
+    else:
+        encode_fn = model.encode_continuous
+    if mesh is not None:
+        encode_fn = functools.partial(sharded_encode, mesh, encode_fn)
     q: queue.Queue = queue.Queue(maxsize=4)
     stop = threading.Event()  # the consumer is gone: the producer ends
 
@@ -283,14 +298,10 @@ def encode_texts(texts, model, tokenizer, max_seq_length: int,
                 raise item
             start, ids, mask = item
             with sw("device_encode"):
-                ids_t = torch.from_numpy(ids).to(dev)
-                mask_t = torch.from_numpy(mask).to(dev)
+                res = encode_fn(torch.from_numpy(ids).to(dev),
+                                torch.from_numpy(mask).to(dev))
                 if output == "code":
-                    res = model(ids_t, mask_t,
-                                return_code=True).discrete_codes
                     res = res.to(torch.uint8)
-                else:
-                    res = model.encode_continuous(ids_t, mask_t)
                 outs.append(res.cpu().numpy())
             if verbose and (start // batch_size) % 50 == 0:
                 logger.info("encoded %d/%d", min(start + batch_size, n), n)
@@ -340,7 +351,7 @@ def encode_corpus(corpus: Dict[Any, str], model, tokenizer, max_seq_length: int,
                   batch_size: int = 256, output: str = "code", device="cuda",
                   stopwatch: Stopwatch = None, cache_dir: Optional[str] = None,
                   shard_size: int = 262144,
-                  token_cache_dir: Optional[str] = None
+                  token_cache_dir: Optional[str] = None, mesh=None
                   ) -> Tuple[np.ndarray, np.ndarray]:
     """Encode a {docid: text} corpus longest-first (encode.py:399-513).
     Returns (codes_or_embeds, corpus_ids).
@@ -356,7 +367,11 @@ def encode_corpus(corpus: Dict[Any, str], model, tokenizer, max_seq_length: int,
     activation dtype, which changes the output at equal params) drops
     every shard when any of them changes. The batch size is not in it: the
     output does not depend on it, and rerunning with a smaller batch after
-    running out of memory must keep the finished shards."""
+    running out of memory must keep the finished shards.
+
+    mesh: every rank encodes its block of each batch (encode_texts) and
+    returns the whole output; rank 0 alone writes cache_dir, and the other
+    ranks wait at a barrier before they read it."""
     corpus_ids = np.array(sorted(corpus, key=lambda k: len(corpus[k]),
                                  reverse=True))
     texts = [corpus[cid] for cid in corpus_ids]
@@ -374,7 +389,7 @@ def encode_corpus(corpus: Dict[Any, str], model, tokenizer, max_seq_length: int,
                             input_text_type="doc", device=device,
                             stopwatch=stopwatch, verbose=True,
                             token_cache=None if token_cache is None
-                            else token_cache.slice(start, stop))
+                            else token_cache.slice(start, stop), mesh=mesh)
 
     n = len(texts)
     if cache_dir is None:
@@ -386,32 +401,39 @@ def encode_corpus(corpus: Dict[Any, str], model, tokenizer, max_seq_length: int,
             "params_fp": _params_fingerprint(model),
             "dtype": enc_cfg.dtype,
             "corpus_fp": corpus_fp}
-    os.makedirs(cache_dir, exist_ok=True)
-    meta_path = os.path.join(cache_dir, "meta.json")
-    try:
-        with open(meta_path) as f:
-            stale = json.load(f) != meta
-    except (OSError, json.JSONDecodeError):
-        stale = True
-    if stale:
-        for name in _shard_names(cache_dir):
-            os.remove(os.path.join(cache_dir, name))
-        with open(meta_path, "w") as f:
-            json.dump(meta, f)
+    writer = mesh is None or mesh.is_main
+    if writer:
+        os.makedirs(cache_dir, exist_ok=True)
+        meta_path = os.path.join(cache_dir, "meta.json")
+        try:
+            with open(meta_path) as f:
+                stale = json.load(f) != meta
+        except (OSError, json.JSONDecodeError):
+            stale = True
+        if stale:
+            for name in _shard_names(cache_dir):
+                os.remove(os.path.join(cache_dir, name))
+            with open(meta_path, "w") as f:
+                json.dump(meta, f)
+    if mesh is not None:
+        mesh.barrier()  # every rank sees the same finished shards
     if n == 0:
         return encode(0, 0), corpus_ids
+    done = {name for name in os.listdir(cache_dir)
+            if name.startswith("shard_")}
     out = None  # filled shard by shard: no second copy of the whole output
     for i, start in enumerate(range(0, n, shard_size)):
         path = os.path.join(cache_dir, f"shard_{i:06d}.npy")
-        if os.path.exists(path):
+        if os.path.basename(path) in done:
             enc = np.load(path)
         else:
             enc = encode(start, start + shard_size)
-            tmp = os.path.join(cache_dir, f".shard_{i:06d}.tmp.npy")
-            np.save(tmp, enc)
-            os.replace(tmp, path)
-            logger.info("encode shard %d (%d/%d docs) flushed to %s", i,
-                        min(start + shard_size, n), n, path)
+            if writer:
+                tmp = os.path.join(cache_dir, f".shard_{i:06d}.tmp.npy")
+                np.save(tmp, enc)
+                os.replace(tmp, path)
+                logger.info("encode shard %d (%d/%d docs) flushed to %s", i,
+                            min(start + shard_size, n), n, path)
         if out is None:
             out = np.empty((n,) + enc.shape[1:], dtype=enc.dtype)
         out[start:start + len(enc)] = enc
@@ -434,12 +456,14 @@ def clear_encode_cache(cache_dir: Optional[str]) -> None:
 
 def encode_queries(queries: Dict[Any, str], model, tokenizer,
                    max_seq_length: int, batch_size: int = 256, device="cuda",
-                   stopwatch: Stopwatch = None) -> Tuple[np.ndarray, np.ndarray]:
-    """Queries to fp32 embeddings, sorted by qid (encode.py:516-532)."""
+                   stopwatch: Stopwatch = None, mesh=None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Queries to fp32 embeddings, sorted by qid (encode.py:516-532); with
+    a mesh, encoded over its ranks (encode_texts)."""
     query_ids = sorted(queries.keys())
     texts = [queries[qid] for qid in query_ids]
     embeds = encode_texts(texts, model, tokenizer, max_seq_length, batch_size,
                           output="continuous_embedding",
                           input_text_type="query", device=device,
-                          stopwatch=stopwatch)
+                          stopwatch=stopwatch, mesh=mesh)
     return embeds, np.array(query_ids)

@@ -40,6 +40,7 @@ groups, regroups and takes the top-k as the unfused ADC search does
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -51,13 +52,15 @@ from repconc_tpu_torch.index.adc import (RUN, build_lut, group_size,
                                          quantize_lut_int8)
 from repconc_tpu_torch.index.cuda_adc import CudaADCIndex, select_topk
 from repconc_tpu_torch.index.ivf import IVFIndex, probe_cells
+from repconc_tpu_torch.parallel.sharded import gather_merge
 from repconc_tpu_torch.quant.codebook import decode_gather
 
 SOURCE = "ivf_scan.cu"
 QT_G = 32  # query slots per work tile (the kernel's warp-wide slot ballot)
 
 
-def group_pairs(cells: torch.Tensor, Q: int, nlist: int, nprobe: int):
+def group_pairs(cells: torch.Tensor, Q: int, nlist: int, nprobe: int,
+                keep: Optional[torch.Tensor] = None):
     """Sort-free grouping of the (query, cell) probe pairs into work tiles
     (pallas_ivf.py:268-311), on an exact grid.
 
@@ -73,12 +76,20 @@ def group_pairs(cells: torch.Tensor, Q: int, nlist: int, nprobe: int):
       work_cell (T,) int32 - tile -> cell;
       slot_pair (T, QT_G) int32 - slot -> its pair q * nprobe + j, -1 for
         an empty slot (`slot_queries` gives the slot's query).
+    keep: (Q, nprobe) bool, the pairs to group (None: all). The others get
+    no slot and row -1: the passes score them nowhere (a cell-sharded
+    rank's pairs of cells it does not own).
     """
     dev = cells.device
     pair_cell = cells.reshape(-1).long()
     pair_q = torch.arange(Q, device=dev).repeat_interleave(nprobe)
     incidence = torch.zeros((Q, nlist), dtype=torch.int32, device=dev)
-    incidence[pair_q, pair_cell] = 1
+    if keep is not None:
+        kept = keep.reshape(-1)
+        pair_cell = torch.where(kept, pair_cell, 0)
+        incidence[pair_q[kept], pair_cell[kept]] = 1
+    else:
+        incidence[pair_q, pair_cell] = 1
     counts = incidence.sum(0)
     before = torch.cumsum(incidence, 0, dtype=torch.int32) - incidence
     rank = before.reshape(-1)[pair_q * nlist + pair_cell].long()
@@ -87,10 +98,14 @@ def group_pairs(cells: torch.Tensor, Q: int, nlist: int, nprobe: int):
     tiles_before = (torch.cumsum(tiles_per_cell, 0) - tiles_per_cell).long()
     work_id = tiles_before[pair_cell] + rank // QT_G
     row = work_id * QT_G + rank % QT_G
+    pair = torch.arange(Q * nprobe, dtype=torch.int32, device=dev)
+    if keep is not None:
+        row = torch.where(kept, row, -1)
+        work_id, pair_cell, pair = work_id[kept], pair_cell[kept], pair[kept]
     work_cell = torch.zeros(T, dtype=torch.int32, device=dev)
     work_cell[work_id] = pair_cell.to(torch.int32)
     slot_pair = torch.full((T * QT_G,), -1, dtype=torch.int32, device=dev)
-    slot_pair[row] = torch.arange(Q * nprobe, dtype=torch.int32, device=dev)
+    slot_pair[row if keep is None else row[kept]] = pair
     return row, work_cell, slot_pair.reshape(T, QT_G)
 
 
@@ -517,10 +532,12 @@ def regroup_topk(scores_flat: torch.Tensor, row: torch.Tensor,
     yardstick of ivf_topk: each query's candidate rows gathered back from
     K2's (T * QT_G, Lpad) scores (row is q-major, so this is a reshape),
     pad slots at -inf, exact top-k. Returns (scores, ids) on the device,
-    ids -1 for a pad."""
+    ids -1 for a pad. A pair without a slot (row -1, group_pairs' keep)
+    counts as a cell of pads."""
     Lpad = cell_ids.shape[1]
-    cand = scores_flat[row].reshape(Q, nprobe * Lpad)
-    ids = cell_ids[cells.reshape(-1).long()].reshape(Q, nprobe * Lpad)
+    cand = scores_flat[row.clamp(min=0)].reshape(Q, nprobe * Lpad)
+    ids = cell_ids[cells.reshape(-1).long()]
+    ids = torch.where(row[:, None] >= 0, ids, -1).reshape(Q, nprobe * Lpad)
     cand = torch.where(ids >= 0, cand, -torch.inf)
     s, pos = torch.topk(cand, min(topk, cand.shape[1]), dim=1)
     return s, torch.gather(ids, 1, pos)
@@ -541,17 +558,33 @@ def make_lut_z(query_embeds: torch.Tensor, pq_centroids: torch.Tensor,
     return torch.cat([lut, lut.new_zeros((1, M, K))]).contiguous(), None
 
 
+def owned_probes(query_embeds, coarse, nprobe: int, owner=None):
+    """(cells, keep): each query's top-nprobe cells (probe_cells) and the
+    pairs to score. owner None: every pair, cells as probed. owner
+    (rank, W): the cell-sharded rank's share (pallas_ivf.py:596-602), the
+    pairs of the cells c % W == rank, at their local index c // W; keep
+    marks them and the other pairs point at local cell 0."""
+    cells = probe_cells(query_embeds, coarse, nprobe)
+    if owner is None:
+        return cells, None
+    rank, world = owner
+    keep = cells % world == rank
+    return torch.where(keep, cells // world, 0), keep
+
+
 @torch.no_grad()
 def ivf_search_device(query_embeds, pq_centroids, coarse, cell_codes,
                       cell_ids, cell_len, nprobe: int, topk: int,
-                      lut_dtype: str = "bf16"):
+                      lut_dtype: str = "bf16", owner=None):
     """Probe, group, and take each query's top-k of its probed cells with
     the two passes of ivf_topk (pallas_ivf.py:339-385 computes the same
-    with K2 / K3 and a regroup). Returns (scores, ids) on the device."""
+    with K2 / K3 and a regroup). Returns (scores, ids) on the device.
+    owner (rank, W): cell_codes, cell_ids and cell_len hold only the cells
+    that rank owns (owned_probes), and only their pairs are scored."""
     Q = query_embeds.shape[0]
-    cells = probe_cells(query_embeds, coarse, nprobe)
+    cells, keep = owned_probes(query_embeds, coarse, nprobe, owner)
     _, work_cell, slot_pair = group_pairs(cells, Q, cell_codes.shape[0],
-                                          nprobe)
+                                          nprobe, keep)
     lut_z, scales_z = make_lut_z(query_embeds, pq_centroids, lut_dtype)
     return ivf_topk(work_cell, slot_pair, lut_z, cell_codes, cell_ids,
                     cell_len, nprobe, topk, scales_z)
@@ -680,16 +713,18 @@ def quantize_queries_int8(query_embeds: torch.Tensor, doc_scale: torch.Tensor):
 
 @torch.no_grad()
 def ivf_search_device_decoded(query_embeds, coarse, cell_vecs, cell_ids,
-                              nprobe: int, topk: int, doc_scale=None):
+                              nprobe: int, topk: int, doc_scale=None,
+                              owner=None):
     """IVF search over a decoded store (pallas_ivf.py:518-557): the probe,
     the grouping into tiles, the masking and the top-k of the ADC search,
     with the tiles scored by score_tiles_decoded (bf16 cell_vecs) or
     score_tiles_decoded_int8 (int8, with doc_scale). Returns (scores, ids)
-    on the device, ids -1 (score -inf) for a pad."""
+    on the device, ids -1 (score -inf) for a pad. owner: as for
+    ivf_search_device."""
     Q, D = query_embeds.shape
     nlist = cell_vecs.shape[0]
-    cells = probe_cells(query_embeds, coarse, nprobe)
-    row, work_cell, slot_pair = group_pairs(cells, Q, nlist, nprobe)
+    cells, keep = owned_probes(query_embeds, coarse, nprobe, owner)
+    row, work_cell, slot_pair = group_pairs(cells, Q, nlist, nprobe, keep)
     qidx = slot_queries(slot_pair, nprobe, Q)
     if cell_vecs.dtype == torch.int8:
         q8, qscale = quantize_queries_int8(query_embeds, doc_scale)
@@ -722,6 +757,7 @@ class CudaIVFIndex:
         self.device = resolve_device(device)
         self.host = index
         self.nlist = index.nlist
+        self.owner = None  # (rank, W) of a cell-sharded rank
         self.serving = serving
         self.store = None  # (dtype, vectors, doc scale or None)
         self.cell_codes = torch.as_tensor(index.cell_codes, device=self.device)
@@ -794,23 +830,29 @@ class CudaIVFIndex:
         """(scores, ids) tensors on the device, the spill merged; ids are
         corpus rows, -1 (score -inf) for a pad. lut_dtype applies to ADC
         serving; serving overrides the default for this call."""
+        q = torch.as_tensor(query_embeds, dtype=torch.float32,
+                            device=self.device)
+        s, i = self.cells_topk(q, topk, nprobe, lut_dtype, serving)
+        return merge_spill(s, i, self.spill, self.spill_ids, q, topk)
+
+    @torch.no_grad()
+    def cells_topk(self, q: torch.Tensor, topk: int, nprobe: int,
+                   lut_dtype: str = "bf16", serving: Optional[str] = None):
+        """Each query's top-k of its probed cells held here, the spill
+        left out: (scores, ids) each (Q, min(topk, nprobe * Lpad))."""
         mode = serving or self.serving
         if mode not in SERVINGS:
             raise ValueError(f"serving must be one of {SERVINGS}, not "
                              f"{mode!r}")
-        q = torch.as_tensor(query_embeds, dtype=torch.float32,
-                            device=self.device)
         nprobe = min(nprobe, self.nlist)
         if mode == "adc":
-            s, i = ivf_search_device(q, self.centroids, self.coarse,
+            return ivf_search_device(q, self.centroids, self.coarse,
                                      self.cell_codes, self.cell_ids,
-                                     self.cell_len, nprobe, topk, lut_dtype)
-        else:
-            vecs, scale = self.decoded_store(_store_dtype(mode))
-            s, i = ivf_search_device_decoded(q, self.coarse, vecs,
-                                             self.cell_ids, nprobe, topk,
-                                             scale)
-        return merge_spill(s, i, self.spill, self.spill_ids, q, topk)
+                                     self.cell_len, nprobe, topk, lut_dtype,
+                                     self.owner)
+        vecs, scale = self.decoded_store(_store_dtype(mode))
+        return ivf_search_device_decoded(q, self.coarse, vecs, self.cell_ids,
+                                         nprobe, topk, scale, self.owner)
 
     def search(self, query_embeds, topk: int = 1000, nprobe: int = 64,
                lut_dtype: str = "bf16", serving: Optional[str] = None):
@@ -821,3 +863,61 @@ class CudaIVFIndex:
 
 def _store_dtype(serving: str) -> str:
     return "int8" if serving == "decoded_int8" else "bf16"
+
+
+class ShardedCudaIVFIndex(CudaIVFIndex):
+    """IVF-PQ with its CELLS sharded round-robin over the mesh
+    (ShardedPallasIVFIndex, pallas_ivf.py:560-894): rank d owns the cells
+    {c : c % W == d} (:596-602) and holds a CudaIVFIndex over them alone,
+    each cell at local index c // W with its global doc ids and its
+    trailing pads; the coarse centroids and the spill are replicated.
+
+    A search probes the replicated coarse centroids, keeps the pairs of
+    the cells this rank owns, scores them with K2's or K3's passes
+    (ivf_topk; on the CPU their plain versions) or the decoded store, takes
+    a local top-k, and gathers and merges the ranks' lists
+    (parallel/sharded.py::gather_merge); every pair is scored by exactly
+    one rank, so the merge is exact. The spill is scanned by K1 with the
+    bf16 LUT and merged once, after the gather, as on one device. Decoded
+    residency shards the same way: each rank decodes only its own cells
+    (:624-663).
+
+    The JAX package's per-device tile capacity, its overflow count and its
+    retry (:611-623,866-893) exist because XLA needs static shapes; the
+    port's tile grid is exact (group_pairs), so no pair can overflow and
+    there is nothing to retry.
+    """
+
+    def __init__(self, mesh, index: IVFIndex, serving: str = "adc"):
+        owned = np.arange(mesh.rank, index.nlist, mesh.size)
+        local = dataclasses.replace(
+            index, cell_codes=index.cell_codes[owned],
+            cell_ids=index.cell_ids[owned], cell_sizes=index.cell_sizes[owned])
+        super().__init__(local, serving=serving, device=mesh.device)
+        self.mesh = mesh
+        self.owner = (mesh.rank, mesh.size)
+
+    def local_search(self, query_embeds, topk: int = 1000, nprobe: int = 64,
+                     lut_dtype: str = "bf16", serving: Optional[str] = None):
+        """This rank's part: (scores, global ids) each (Q, min(topk,
+        nprobe * Lpad)) over the pairs of its own cells, -inf / -1 pads;
+        the spill left out."""
+        q = torch.as_tensor(query_embeds, dtype=torch.float32,
+                            device=self.device)
+        return self.cells_topk(q, topk, nprobe, lut_dtype, serving)
+
+    def merge_spill(self, s, i, query_embeds, topk: int):
+        """The merged cells' top-k with the replicated spill merged in."""
+        q = torch.as_tensor(query_embeds, dtype=torch.float32,
+                            device=self.device)
+        return merge_spill(s, i, self.spill, self.spill_ids, q, topk)
+
+    @torch.no_grad()
+    def search_device(self, query_embeds, topk: int = 1000, nprobe: int = 64,
+                      lut_dtype: str = "bf16", serving: Optional[str] = None):
+        """(scores, ids) tensors on this rank's device, the same on every
+        rank: the local part, the gather and merge, then the spill."""
+        s, i = self.local_search(query_embeds, topk, nprobe, lut_dtype,
+                                 serving)
+        s, i = gather_merge(self.mesh, s, i, s.shape[1])
+        return self.merge_spill(s, i, query_embeds, topk)

@@ -57,16 +57,24 @@ def flat_search(query_embeds, corpus_embeds, topk: int = 1000,
     k = min(topk, N)."""
     dev = resolve_device(device)
     q = torch.as_tensor(np.asarray(query_embeds, dtype=np.float32)).to(dev)
-    N = corpus_embeds.shape[0]
-    k = min(topk, N)
+    s, i = flat_topk(q, corpus_embeds, min(topk, corpus_embeds.shape[0]),
+                     chunk_size)
+    return s.cpu().numpy(), i.cpu().numpy()
+
+
+def flat_topk(q: torch.Tensor, corpus_embeds, k: int,
+              chunk_size: int = 1 << 20):
+    """(scores, row ids) tensors on q's device, each (Q, k), k <= N: the
+    exact top-k of q @ corpus.T, a corpus chunk at a time."""
+    dev = q.device
     best_s = torch.full((q.shape[0], k), -torch.inf, device=dev)
     best_i = torch.zeros((q.shape[0], k), dtype=torch.int64, device=dev)
-    for start in range(0, N, chunk_size):
+    for start in range(0, corpus_embeds.shape[0], chunk_size):
         cc = torch.as_tensor(corpus_embeds[start:start + chunk_size]).to(
             dev, torch.float32)
         s, i = torch.topk(q @ cc.T, min(k, cc.shape[0]), dim=1)
         best_s, best_i = merge_topk(best_s, best_i, s, i + start)
-    return best_s.cpu().numpy(), best_i.cpu().numpy()
+    return best_s, best_i
 
 
 def batch_flat_search(query_ids: np.ndarray, query_embeds: np.ndarray,

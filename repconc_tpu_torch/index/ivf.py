@@ -329,22 +329,26 @@ def serve_search(index: IVFIndex, query_embeds, topk: int = 1000,
     "decoded_int8" (int8 reconstructions and a per-dimension scale); the
     decoded scorers are torch ops, so they run on the CPU too.
     Queries go in search_batch chunks, the short last chunk zero-padded, as
-    in the JAX package. mesh= (a cell-sharded index) is not ported yet and
-    raises.
+    in the JAX package.
+    mesh (core/mesh.py): serve from the cells this rank owns
+    (cuda_ivf.ShardedCudaIVFIndex), every rank taking part and getting the
+    whole result; "auto" is then the cell-grouped path on every device, on
+    the CPU the passes' plain versions. mode="xla" has no cell-sharded
+    scan and raises, as a mesh never serves the unsharded index; the
+    device is the mesh's.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "a cell-sharded IVF (mesh=) is not ported yet (ROADMAP.md, Queue 1 "
-            "item 10)")
     serving = serving or "adc"
     if serving not in ("adc", "decoded", "decoded_int8"):
         raise ValueError(f"serving must be adc, decoded or decoded_int8, not "
                          f"{serving!r}")
     if lut_dtype not in ("bf16", "int8"):
         raise ValueError(f"lut_dtype must be bf16 or int8, not {lut_dtype!r}")
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     if mode == "auto":
-        mode = "pallas" if dev.type == "cuda" else "xla"
+        mode = "pallas" if dev.type == "cuda" or mesh is not None else "xla"
+    if mode == "xla" and mesh is not None:
+        raise ValueError("serve_search: mode='xla' has no cell-sharded "
+                         "variant; under a mesh take mode auto or pallas")
     if mode == "xla":
         if lut_dtype != "bf16":
             logger.warning("serve_search: lut_dtype=%s applies to the "
@@ -358,9 +362,12 @@ def serve_search(index: IVFIndex, query_embeds, topk: int = 1000,
                           device=dev)
     if mode != "pallas":
         raise ValueError(f"mode must be auto, pallas or xla, not {mode!r}")
-    from repconc_tpu_torch.index.cuda_ivf import CudaIVFIndex
+    from repconc_tpu_torch.index.cuda_ivf import (CudaIVFIndex,
+                                                 ShardedCudaIVFIndex)
 
-    searcher = CudaIVFIndex(index, serving=serving, device=dev)
+    searcher = (CudaIVFIndex(index, serving=serving, device=dev)
+                if mesh is None else
+                ShardedCudaIVFIndex(mesh, index, serving=serving))
     Q = len(query_embeds)
     if Q == 0:
         return (np.zeros((0, topk), np.float32), np.zeros((0, topk), np.int64))

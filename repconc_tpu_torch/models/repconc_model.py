@@ -57,15 +57,16 @@ class RepConcModel(nn.Module):
     def forward(self, input_ids, attention_mask, discrete_codes=None,
                 return_code: bool = False,
                 return_quantized_embedding: bool = False,
-                use_constraint: bool = False) -> QuantizeOutput:
+                use_constraint: bool = False, group=None) -> QuantizeOutput:
         """repconc_model.py:82-106; the constraint takes the config's
-        sk_epsilon and sk_iters."""
+        sk_epsilon and sk_iters, and spans the ranks of `group` (the JAX
+        package's axis_name; None: this process's rows)."""
         rotated = self.encode_continuous(input_ids, attention_mask)
         if discrete_codes is None and (return_code or return_quantized_embedding):
             discrete_codes = codebook.encode(
                 rotated, self.centroids, use_constraint=use_constraint,
                 sk_epsilon=self.config.sk_epsilon,
-                sk_iters=self.config.sk_iters)
+                sk_iters=self.config.sk_iters, group=group)
         quantized = (codebook.decode(discrete_codes, self.centroids)
                      if return_quantized_embedding else None)
         return QuantizeOutput(rotated, quantized, discrete_codes)

@@ -69,7 +69,8 @@ def _auto_m_chunk(B: int, M: int, K: int) -> int:
 @torch.no_grad()
 def encode(embeds: torch.Tensor, centroids: torch.Tensor,
            use_constraint: bool = False, sk_epsilon: float = 0.003,
-           sk_iters: int = 100, m_chunk: Optional[int] = None) -> torch.Tensor:
+           sk_iters: int = 100, m_chunk: Optional[int] = None,
+           group=None) -> torch.Tensor:
     """Codes (B, M) int64: nearest centroid, or the Sinkhorn-constrained
     assignment (codebook.py:85-127). No gradient flows: the assignment is
     discrete.
@@ -77,7 +78,9 @@ def encode(embeds: torch.Tensor, centroids: torch.Tensor,
     m_chunk: subspaces per chunk (None = auto). Subspace problems are
     independent (the centring and both marginals are per subspace), so the
     result is the same for every chunking. Ties go to the lowest index, as
-    jnp.argmin's and jnp.argmax's do."""
+    jnp.argmin's and jnp.argmax's do. group: the process group whose ranks'
+    rows the constraint spans (quant/sinkhorn.py), None for one process;
+    every rank must pass the same number of rows."""
     embeds, centroids = embeds.detach(), centroids.detach()
     M, K = centroids.shape[0], centroids.shape[1]
     B = embeds.shape[0]
@@ -86,7 +89,7 @@ def encode(embeds: torch.Tensor, centroids: torch.Tensor,
     codes = []
     for s in range(0, M, mc):
         d = _sqdist_mbk(x[s:s + mc], centroids[s:s + mc])  # (mc, B, K)
-        codes.append(sinkhorn_assign(d, sk_epsilon, sk_iters)
+        codes.append(sinkhorn_assign(d, sk_epsilon, sk_iters, group)
                      if use_constraint else d.argmin(-1).T)
     return torch.cat(codes, 1).contiguous()
 

@@ -1,7 +1,7 @@
 """Stage-1 RepCONC joint training: encoders + centroids under the constraint.
 
 Counterpart of repconc_tpu/train/stage1.py (the reference's
-RepCONCFinetuner, finetune_repconc.py:225-613), on one device:
+RepCONCFinetuner, finetune_repconc.py:225-613):
 
 * GradCache (finetune_repconc.py:278-396) is `encode_chunked`: chunks of
   the batch encode under torch.utils.checkpoint, so the backward recomputes
@@ -14,8 +14,21 @@ RepCONCFinetuner, finetune_repconc.py:225-613), on one device:
   HF decay mask for the encoder, Adam at centroid_learning_rate for the
   centroids, and no update of the rotation (`Stage1Optimizer`).
 
-The JAX package's cross-device batch (a mesh, DCN processes) is ROADMAP.md
-Queue 1 item 10. Its train state is a flax msgpack or an orbax checkpoint;
+Data parallelism (`mesh=`, core/mesh.py): the JAX package writes the step
+over the global batch and lets GSPMD insert the collectives
+(stage1.py:14-16,349-383); here each rank encodes its contiguous block of
+the global batch (queries, positives and negatives alike), runs the
+Sinkhorn constraint over its own docs with the marginals all-reduced
+across the ranks (quant/sinkhorn.py), gathers the query embeddings and the
+doc representations with a gather whose backward keeps the rank's own
+rows (core/distributed.py::gather_rows), and computes the GLOBAL loss,
+the same on every rank. The parameter gradients are then summed over the
+ranks (a SUM: each rank's backward holds its rows' share), clipped by the
+global norm, and every rank takes the same step. Dropout seeds are drawn
+in the one-process order, so a W-rank step draws the one-process step's
+masks (encode_chunked). Rank 0 alone writes checkpoint/, best/ and final/.
+
+The JAX package's train state is a flax msgpack or an orbax checkpoint;
 the port's is a torch.save file (`save_train_state`): a deviation by
 design, listed in ROADMAP.md Queue 3.
 """
@@ -34,6 +47,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repconc_tpu_torch.core.config import METRIC_CENTROID_COS
 from repconc_tpu_torch.core.device import resolve_device
+from repconc_tpu_torch.core.distributed import (all_reduce_grads,
+                                                broadcast_params, gather_rows)
+from repconc_tpu_torch.core.mesh import collective_group
 from repconc_tpu_torch.eval import pipeline
 from repconc_tpu_torch.models import repconc_model
 from repconc_tpu_torch.models.convert import param_table
@@ -164,52 +180,85 @@ def draw_seeds(seeds: torch.Generator, n: int) -> List[int]:
     return torch.randint(0, 2 ** 62, (n,), generator=seeds).tolist()
 
 
+def chunk_rows(B: int, chunk_size: int, world: int = 1) -> Optional[int]:
+    """Rows per GradCache chunk of a B-row batch split over `world` ranks,
+    or None for one unchunked encode (one process, chunk_size <= 0 or
+    B <= chunk_size). A chunk_size that does not divide B is rounded down
+    to a divisor, so a non-dividing chunk does not silently disable the
+    chunking. Over several ranks the chunk must divide each rank's B / W
+    rows, or chunk boundaries, and so the dropout masks, would differ from
+    one process's (ValueError); without chunking each rank's block is one
+    chunk, as in one process at chunk_size B / W."""
+    if chunk_size <= 0 or B <= chunk_size:
+        return None if world == 1 else B // world
+    chunk = codebook.round_to_divisor(B, chunk_size)
+    if (B // world) % chunk:
+        raise ValueError(f"the GradCache chunk {chunk} must divide each "
+                         f"rank's {B // world} rows ({B} over {world} ranks)")
+    return chunk
+
+
 def encode_chunked(model, input_ids, attention_mask, chunk_size: int,
-                   seeds: Optional[torch.Generator] = None) -> torch.Tensor:
+                   seeds: Optional[torch.Generator] = None,
+                   mesh=None) -> torch.Tensor:
     """GradCache as torch.utils.checkpoint (stage1.py:113-147): chunks of
-    `chunk_size` rows (rounded down to a divisor of the batch) encode under
-    checkpoint, so the backward recomputes their activations.
+    `chunk_size` rows (chunk_rows) encode under checkpoint, so the backward
+    recomputes their activations.
 
     seeds: a host generator; each chunk draws from it the seed of its own
     dropout generator (None: no dropout). The recompute rebuilds the
     generator from that seed, so it draws the forward's masks; the global
-    RNG plays no part (preserve_rng_state=False)."""
+    RNG plays no part (preserve_rng_state=False).
+
+    mesh: input_ids are the global batch's rows and this rank encodes its
+    contiguous block of them; every rank draws the whole batch's chunk
+    seeds, in the one-process order, and uses those of its own chunks.
+    Returns this rank's rows' embeddings."""
     def enc(ids, mask, seed):
         gen = (None if seed is None
                else torch.Generator(device=ids.device).manual_seed(seed))
         return model.encode_continuous(ids, mask, gen)
 
     B = input_ids.shape[0]
-    if chunk_size <= 0 or B <= chunk_size:
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.size)
+    chunk = chunk_rows(B, chunk_size, world)
+    if chunk is None:
         seed = None if seeds is None else draw_seeds(seeds, 1)[0]
         return enc(input_ids, attention_mask, seed)
-    # a non-dividing chunk must not silently disable the chunking
-    chunk_size = codebook.round_to_divisor(B, chunk_size)
-    nc = B // chunk_size
+    nc = B // chunk
     chunk_seeds = [None] * nc if seeds is None else draw_seeds(seeds, nc)
-    outs = [checkpoint(enc, input_ids[i * chunk_size:(i + 1) * chunk_size],
-                       attention_mask[i * chunk_size:(i + 1) * chunk_size],
-                       seed, use_reentrant=False, preserve_rng_state=False)
-            for i, seed in enumerate(chunk_seeds)]
+    per_rank = nc // world
+    outs = [checkpoint(enc, input_ids[i * chunk:(i + 1) * chunk],
+                       attention_mask[i * chunk:(i + 1) * chunk],
+                       chunk_seeds[i], use_reentrant=False,
+                       preserve_rng_state=False)
+            for i in range(rank * per_rank, (rank + 1) * per_rank)]
     return torch.cat(outs, 0)
 
 
 def loss_fn(model, hp: Stage1Hparams, batch: Dict[str, torch.Tensor],
-            seeds: Optional[torch.Generator] = None
+            seeds: Optional[torch.Generator] = None, mesh=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The step's loss (stage1.py:157-204): contrastive over the batch's
     queries and docs, on the constrained quantized docs, plus the weighted
-    reconstruction MSE. Returns (total, metrics)."""
+    reconstruction MSE. Returns (total, metrics).
+
+    mesh: `batch` is the global batch; this rank encodes its rows, runs
+    the constraint over its docs with the ranks' marginals, and gathers
+    the query embeddings and the docs' representations (gather_rows), so
+    the loss is the global batch's, the same on every rank."""
     config = model.config
     mcc = config.similarity_metric == METRIC_CENTROID_COS
+    group = collective_group(mesh)
 
     def enc(key):
         return encode_chunked(model, batch[f"{key}_input_ids"],
                               batch[f"{key}_attention_mask"],
-                              hp.cache_chunk_size, seeds)
+                              hp.cache_chunk_size, seeds, mesh)
 
     q_embeds = enc("query")
     pos_embeds = enc("pos")
+    n_pos = pos_embeds.shape[0]
     if "neg_input_ids" in batch:
         doc_embeds = torch.cat([pos_embeds, enc("neg")], 0)
         doc_ids = torch.cat([batch["pos_docids"], batch["neg_docids"]])
@@ -220,11 +269,23 @@ def loss_fn(model, hp: Stage1Hparams, batch: Dict[str, torch.Tensor],
         codes = codebook.encode(doc_embeds, model.centroids,
                                 use_constraint=hp.use_constraint,
                                 sk_epsilon=config.sk_epsilon,
-                                sk_iters=config.sk_iters)
+                                sk_iters=config.sk_iters, group=group)
         quantized = codebook.decode(codes, model.centroids)
         doc_rep = losses.straight_through(quantized, doc_embeds)
     else:  # dense pre-training (stage 0): no codebook in the graph
         quantized = doc_rep = doc_embeds
+
+    if group is not None:  # the global batch: positives, then negatives
+        def docs(t):
+            return torch.cat([gather_rows(t[:n_pos], group),
+                              gather_rows(t[n_pos:], group)], 0)
+
+        q_embeds = gather_rows(q_embeds, group)
+        if hp.quantize:
+            doc_rep, quantized, doc_embeds = (docs(doc_rep), docs(quantized),
+                                              docs(doc_embeds))
+        else:
+            quantized = doc_rep = doc_embeds = docs(doc_embeds)
 
     neg_mask = (losses.false_negative_mask(batch["qids"], doc_ids,
                                            batch["query_positives"])
@@ -239,19 +300,24 @@ def loss_fn(model, hp: Stage1Hparams, batch: Dict[str, torch.Tensor],
                    "mse_loss": m_loss.detach()}
 
 
-def make_train_step(model, hp: Stage1Hparams, tx: Stage1Optimizer):
+def make_train_step(model, hp: Stage1Hparams, tx: Stage1Optimizer,
+                    mesh=None):
     """The step (stage1.py:150-215): loss, backward, clip and update, then
     the CENTROID_COS renormalisation (RepCONC_Norm_Centroid_Callback,
     finetune_repconc.py:216-222). `train_step(batch, seeds)` takes a dict
     of tensors on the model's device and returns the metrics as 0-d
     tensors, `grad_norm` among them; the gradients stay in `.grad`,
-    clipped."""
+    clipped. mesh: `batch` is the global batch (loss_fn) and the gradients
+    are summed over the ranks before the clip, so every rank takes the
+    same step."""
     mcc = model.config.similarity_metric == METRIC_CENTROID_COS
+    group = collective_group(mesh)
 
     def train_step(batch, seeds=None):
         tx.zero_grad()
-        total, metrics = loss_fn(model, hp, batch, seeds)
+        total, metrics = loss_fn(model, hp, batch, seeds, mesh)
         total.backward()
+        all_reduce_grads(tx.leaves, group)
         metrics["grad_norm"] = tx.step()
         if mcc:
             with torch.no_grad():
@@ -338,7 +404,7 @@ def train(model, batches: Iterator[Dict[str, np.ndarray]], hp: Stage1Hparams,
           output_dir: str, tokenizer=None,
           valid_set: Optional[Tuple[Dict, Dict, Dict]] = None,
           metric_for_best: str = "MRR@10", log_fn=None,
-          device="cuda") -> Dict[str, Any]:
+          device="cuda", mesh=None) -> Dict[str, Any]:
     """Run stage-1 training on `device` (stage1.py:315-432). valid_set =
     (corpus, queries, qrels), validated every eval_steps through the flat
     quantized search (on the card, K1's two passes), or with
@@ -346,8 +412,18 @@ def train(model, batches: Iterator[Dict[str, np.ndarray]], hp: Stage1Hparams,
 
     Resumes automatically if output_dir holds a train state; an unreadable
     one restarts from step 0. Writes output_dir/checkpoint (the train
-    state), best/ (on each better metric_for_best) and final/."""
-    dev = resolve_device(device)
+    state), best/ (on each better metric_for_best) and final/.
+
+    mesh (core/mesh.py): data-parallel over its ranks, on the mesh's
+    device. Every rank iterates the same global batches (`batches` made
+    from the same seed) and takes its rows of each; rank 0's parameters
+    are broadcast at the start and after a resume; the validation runs
+    over the ranks (encodes and search sharded), so every rank takes the
+    same `best` decision; rank 0 alone writes, and every rank returns
+    after the final write."""
+    dev = resolve_device(device) if mesh is None else mesh.device
+    group = collective_group(mesh)
+    is_main = mesh is None or mesh.is_main
     model.to(dev)
     tx = make_optimizer(hp, model)
     seeds = torch.Generator().manual_seed(hp.seed)
@@ -363,8 +439,9 @@ def train(model, batches: Iterator[Dict[str, np.ndarray]], hp: Stage1Hparams,
                            "starting from step 0", e)
             tx = make_optimizer(hp, model)
             seeds = torch.Generator().manual_seed(hp.seed)
+    broadcast_params(model, group)
 
-    step_fn = make_train_step(model, hp, tx)
+    step_fn = make_train_step(model, hp, tx, mesh)
     health_fn = make_quant_health_fn(model)
     log = log_fn or (lambda d: logger.info("%s", d))
     history = []
@@ -388,23 +465,28 @@ def train(model, batches: Iterator[Dict[str, np.ndarray]], hp: Stage1Hparams,
             # save BEFORE the eval when a save is due at this step, so a run
             # killed during the eval resumes at this step, not before it;
             # resume redoes the eval
-            if hp.save_steps and step % hp.save_steps == 0:
+            if hp.save_steps and step % hp.save_steps == 0 and is_main:
                 save_train_state(ckpt_dir, model, tx, seeds, step, best)
             corpus, queries, qrels = valid_set
             eval_fn = (pipeline.evaluate_repconc_model if hp.quantize
                        else pipeline.evaluate_dense_model)
             eval_m = eval_fn(model, tokenizer, corpus, queries, qrels,
-                             max_seq_length=512, topk=10, device=dev)
+                             max_seq_length=512, topk=10, device=dev,
+                             mesh=mesh)
             log({"step": step, **{f"eval_{k}": v for k, v in eval_m.items()}})
             score = eval_m.get(metric_for_best, 0.0)
             if score > best:
                 best = score
-                save_model_dir(os.path.join(output_dir, "best"), model,
-                               tokenizer)
-        if hp.save_steps and step % hp.save_steps == 0:
+                if is_main:
+                    save_model_dir(os.path.join(output_dir, "best"), model,
+                                   tokenizer)
+        if hp.save_steps and step % hp.save_steps == 0 and is_main:
             save_train_state(ckpt_dir, model, tx, seeds, step, best)
 
-    save_train_state(ckpt_dir, model, tx, seeds, step, best)
-    save_model_dir(os.path.join(output_dir, "final"), model, tokenizer)
+    if is_main:
+        save_train_state(ckpt_dir, model, tx, seeds, step, best)
+        save_model_dir(os.path.join(output_dir, "final"), model, tokenizer)
+    if mesh is not None:
+        mesh.barrier()
     return {"model": model, "step": step, "best_metric": best,
             "history": history}

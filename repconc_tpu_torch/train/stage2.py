@@ -2,7 +2,7 @@
 against frozen doc codes.
 
 Counterpart of repconc_tpu/train/stage2.py (the reference's JPQFinetuner,
-finetune_jpq.py:142-374), on one device. The index IS (codes, centroids):
+finetune_jpq.py:142-374). The index IS (codes, centroids):
 the in-step search reads the centroids the optimizer updates, so nothing
 is kept in sync. Each step (stage2.py:113-187):
 
@@ -20,12 +20,19 @@ is kept in sync. Each step (stage2.py:113-187):
    computes that mask and never applies it (finetune_jpq.py:191,231-243);
    the JAX package applies it on purpose, and so does the port.
 
+Data parallelism (`mesh=`): each rank takes its contiguous block of the
+global query batch, the codes replicated on every rank; each rank's
+in-step search runs over the whole codes, and the loss is the global
+batch's mean, each rank's backward holding its rows' share, the gradients
+summed over the ranks as in stage 1 (train/stage1.py).
+
 Deviations by design (ROADMAP.md Queue 3): the in-step search is the exact
 top-k by (score DESC, id ASC), where the TPU's kernel branch asked for
 recall 0.95 (stage2.py:129-130); a CUDA device takes the kernel at every
 N, where the JAX package takes Pallas only off the CPU at N >= 100,000
-(stage2.py:92-95). The JAX package's data-parallel mesh is ROADMAP.md
-Queue 1 item 10.
+(stage2.py:92-95); under a mesh the search stays K1's, where the JAX
+package turns Pallas off (stage2.py:94-98): both searches are exact, so
+the negatives are the same.
 """
 from __future__ import annotations
 
@@ -36,9 +43,13 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repconc_tpu_torch.core.config import METRIC_CENTROID_COS
 from repconc_tpu_torch.core.device import resolve_device
+from repconc_tpu_torch.core.distributed import (all_reduce_grads,
+                                                broadcast_params)
+from repconc_tpu_torch.core.mesh import collective_group
 from repconc_tpu_torch.eval.encode import encode_queries
 from repconc_tpu_torch.eval.pipeline import flat_metrics, run_from_topk
 from repconc_tpu_torch.index.adc import batch_adc_search, build_lut, plain_topk
@@ -121,8 +132,9 @@ def ranking_loss(q_embeds: torch.Tensor, centroids: torch.Tensor,
                  batch: Dict[str, torch.Tensor], temperature: float
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """CE over [positive; negatives] with label 0 (stage2.py:139-175), the
-    docs decoded from their codes through the centroids. Returns (loss,
-    the (B, k) mask of retrieved positives)."""
+    docs decoded from their codes through the centroids, averaged over the
+    B rows of q_embeds and batch. Returns (loss, the (B, k) mask of
+    retrieved positives)."""
     B, k = neg_pids.shape
     neg = codebook.decode(codes[neg_pids.reshape(-1)],
                           centroids).reshape(B, k, -1)
@@ -138,27 +150,47 @@ def ranking_loss(q_embeds: torch.Tensor, centroids: torch.Tensor,
 
 def loss_fn(model, hp: Stage2Hparams, batch: Dict[str, torch.Tensor],
             codes: torch.Tensor, n_docs: int, use_kernel: bool,
-            seeds: Optional[torch.Generator] = None):
+            seeds: Optional[torch.Generator] = None, mesh=None):
     """The step's loss. Returns (loss, metrics, aux); aux holds what the
     step searched and masked: the detached query embeddings `q_embeds`, the
-    retrieved ids `neg_pids` and the mask `masked`."""
+    retrieved ids `neg_pids` and the mask `masked`.
+
+    mesh: `batch` is the global batch; this rank encodes and searches its
+    block of rows, and its loss is their share of the global mean, B_local
+    / B times their mean, so the ranks' gradients sum to the global
+    batch's. The metric `loss` is the global mean, summed over the ranks;
+    aux holds this rank's rows."""
     q_embeds = stage1.encode_chunked(model, batch["query_input_ids"],
-                                     batch["query_attention_mask"], -1, seeds)
+                                     batch["query_attention_mask"], -1, seeds,
+                                     mesh)
+    if mesh is not None:
+        rows = mesh.block(batch["query_input_ids"].shape[0])
+        batch = {k: batch[k][rows] for k in ("pos_docids", "query_positives")}
     neg_pids = retrieve(q_embeds, model.centroids, codes, n_docs,
                         hp.dynamic_topk_negative, use_kernel)
     loss, is_pos = ranking_loss(q_embeds, model.centroids, codes, neg_pids,
                                 batch, hp.temperature)
-    return loss, {"loss": loss.detach()}, {
+    metric = loss.detach()
+    if mesh is not None:
+        loss = loss * (1.0 / mesh.size)
+        metric = loss.detach().clone()
+        group = collective_group(mesh)
+        if group is not None:
+            dist.all_reduce(metric, op=dist.ReduceOp.SUM, group=group)
+    return loss, {"loss": metric}, {
         "q_embeds": q_embeds.detach(), "neg_pids": neg_pids, "masked": is_pos}
 
 
 def make_train_step(model, hp: Stage2Hparams, tx: stage1.Stage1Optimizer,
-                    codes: torch.Tensor, n_docs: Optional[int] = None):
+                    codes: torch.Tensor, n_docs: Optional[int] = None,
+                    mesh=None):
     """The step over device-resident uint8 codes (N', M): docs 0..n_docs-1
     are the corpus (default all N'), the rows after them padding, as
     CudaADCIndex holds them. `train_step(batch, seeds)` takes a dict of
     tensors on the model's device and returns the metrics `loss` and
-    `grad_norm` (before the clip) as 0-d tensors.
+    `grad_norm` (before the clip) as 0-d tensors. mesh: `batch` is the
+    global batch (loss_fn), and the gradients are summed over the ranks
+    before the clip.
 
     k > n_docs raises ValueError, as the JAX package's XLA branch does
     (its Pallas branch would draw pad rows as negatives instead)."""
@@ -170,11 +202,14 @@ def make_train_step(model, hp: Stage2Hparams, tx: stage1.Stage1Optimizer,
     use_kernel = takes_kernel(hp.use_pallas_search, codes.device)
     mcc = model.config.similarity_metric == METRIC_CENTROID_COS
 
+    group = collective_group(mesh)
+
     def train_step(batch, seeds=None):
         tx.zero_grad()
         loss, metrics, _ = loss_fn(model, hp, batch, codes, n_docs,
-                                   use_kernel, seeds)
+                                   use_kernel, seeds, mesh)
         loss.backward()
+        all_reduce_grads(tx.leaves, group)
         metrics["grad_norm"] = tx.step()
         if mcc:
             with torch.no_grad():
@@ -201,12 +236,17 @@ def train(model, codes, batches: Iterator[Dict[str, np.ndarray]],
     Resumes if output_dir holds a train state; an unreadable one restarts
     from step 0. Writes output_dir/checkpoint (the train state, every
     save_steps and at the end), best/ (on each better metric_for_best) and
-    final/."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel stage-2 training (mesh=) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 10)")
-    dev = resolve_device(device)
+    final/.
+
+    mesh (core/mesh.py): data-parallel over its ranks, on the mesh's
+    device: every rank iterates the same global batches and takes its
+    rows of each, holds the whole codes, validates (the queries encoded
+    over the ranks), and takes the same `best` decision; rank 0's
+    parameters are broadcast at the start and after a resume, and rank 0
+    alone writes."""
+    dev = resolve_device(device) if mesh is None else mesh.device
+    group = collective_group(mesh)
+    is_main = mesh is None or mesh.is_main
     model.to(dev)
     tx = stage1.make_optimizer(hp.as_stage1(), model)
     seeds = torch.Generator().manual_seed(hp.seed)
@@ -222,9 +262,10 @@ def train(model, codes, batches: Iterator[Dict[str, np.ndarray]],
                            "starting from step 0", e)
             tx = stage1.make_optimizer(hp.as_stage1(), model)
             seeds = torch.Generator().manual_seed(hp.seed)
+    broadcast_params(model, group)
 
     index = CudaADCIndex(codes, model.centroids.detach(), device=dev)
-    step_fn = make_train_step(model, hp, tx, index.codes, index.N)
+    step_fn = make_train_step(model, hp, tx, index.codes, index.N, mesh)
     log = log_fn or (lambda d: logger.info("%s", d))
     history = []
     step = start_step
@@ -232,7 +273,8 @@ def train(model, codes, batches: Iterator[Dict[str, np.ndarray]],
     def eval_now():
         cids, queries, qrels = valid_set
         q_embeds, query_ids = encode_queries(queries, model, tokenizer, 64,
-                                             batch_size=256, device=dev)
+                                             batch_size=256, device=dev,
+                                             mesh=mesh)
         s, ids = batch_adc_search(
             query_ids, q_embeds, cids, codes,
             model.centroids.detach().cpu().numpy(), topk=10, device=dev,
@@ -257,12 +299,17 @@ def train(model, codes, batches: Iterator[Dict[str, np.ndarray]],
             score = eval_m.get(metric_for_best, 0.0)
             if score > best:
                 best = score
-                stage1.save_model_dir(os.path.join(output_dir, "best"), model,
-                                      tokenizer)
-        if hp.save_steps and step % hp.save_steps == 0:
+                if is_main:
+                    stage1.save_model_dir(os.path.join(output_dir, "best"),
+                                          model, tokenizer)
+        if hp.save_steps and step % hp.save_steps == 0 and is_main:
             stage1.save_train_state(ckpt_dir, model, tx, seeds, step, best)
 
-    stage1.save_train_state(ckpt_dir, model, tx, seeds, step, best)
-    stage1.save_model_dir(os.path.join(output_dir, "final"), model, tokenizer)
+    if is_main:
+        stage1.save_train_state(ckpt_dir, model, tx, seeds, step, best)
+        stage1.save_model_dir(os.path.join(output_dir, "final"), model,
+                              tokenizer)
+    if mesh is not None:
+        mesh.barrier()
     return {"model": model, "step": step, "best_metric": best,
             "history": history}

@@ -208,8 +208,24 @@ def test_cli_metric_and_pooling_overrides_match_jax(toy, tmp_path):
 
 @pytest.mark.parametrize("extra,item", [(["--data_parallel"], "item 10")])
 def test_cli_unported_options_raise(toy, tmp_path, extra, item):
-    with pytest.raises(NotImplementedError, match=item):
-        port_cli.main(_cli_args(toy[0], tmp_path) + extra + ["--device", "cpu"])
+    """Options that were ROADMAP.md Queue 1 `item`, since ported:
+    --data_parallel at world size 1 (a gloo group joined by the env
+    contract) encodes over the mesh and searches a ShardedFlatIndex, and
+    writes the one-process embeddings and run (but for the order of exact
+    ties)."""
+    from test_torch_distributed import _ranking, world1_mesh
+
+    one, dp = tmp_path / "one", tmp_path / "dp"
+    port_cli.main(_cli_args(toy[0], one) + ["--save_query_embed", "--device",
+                                             "cpu"])
+    with world1_mesh():
+        port_cli.main(_cli_args(toy[0], dp) + extra + ["--save_query_embed",
+                                                        "--device", "cpu"])
+    np.testing.assert_array_equal(np.load(dp / "dev" / "query_embeds.npy"),
+                                  np.load(one / "dev" / "query_embeds.npy"))
+    assert (_ranking(dp / "dev" / "run.tsv")
+            == _ranking(one / "dev" / "run.tsv"))
+    assert (dp / "dev" / "metric.json").exists()
 
 
 def test_cli_default_device_needs_a_card(toy, tmp_path):

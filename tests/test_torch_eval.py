@@ -253,8 +253,19 @@ def test_cli_guards_and_unported_options(toy_model_dir, toy_data, tmp_path):
     with pytest.raises(SystemExit):
         port_cli.main(same + ["--device", "cpu"])
     base = _cli_args(toy_model_dir, paths, tmp_path / "c", tmp_path / "q")
-    with pytest.raises(NotImplementedError):
+    # --data_parallel is ported: at world size 1 (a gloo group joined by the
+    # env contract) the corpus-sharded search writes the one-process run
+    from test_torch_distributed import _ranking, world1_mesh
+
+    one = _cli_args(toy_model_dir, paths, tmp_path / "c1", tmp_path / "q1")
+    port_cli.main(one + ["--device", "cpu"])
+    with world1_mesh():
         port_cli.main(base + ["--data_parallel", "--device", "cpu"])
+    np.testing.assert_array_equal(np.load(tmp_path / "c" / "codes.npy"),
+                                  np.load(tmp_path / "c1" / "codes.npy"))
+    assert (_ranking(tmp_path / "q" / "run.tsv")
+            == _ranking(tmp_path / "q1" / "run.tsv"))
+    os.remove(tmp_path / "q" / "metric.json")
     # decoded residency is ported: --serving decoded serves the IVF
     port_cli.main(base + ["--index_type", "ivf", "--nlist", "8", "--nprobe",
                           "8", "--serving", "decoded", "--device", "cpu"])

@@ -54,6 +54,15 @@ SLICE9_MODULES = ["repconc_tpu_torch.recipes",
                   "repconc_tpu_torch.index.kmeans",
                   "repconc_tpu_torch.index.cuda_ivf"]
 
+# the modules of data parallelism and profiling, each guarded by the tests
+# below
+SLICE10_MODULES = ["repconc_tpu_torch.core.distributed",
+                   "repconc_tpu_torch.core.mesh",
+                   "repconc_tpu_torch.core.profiling",
+                   "repconc_tpu_torch.parallel",
+                   "repconc_tpu_torch.parallel.sharded",
+                   "repconc_tpu_torch.recipes.multi_gpu_check"]
+
 
 def _module_names():
     names = []
@@ -143,6 +152,58 @@ def test_slice9_module_is_guarded(name):
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("name", SLICE10_MODULES)
+def test_slice10_module_is_guarded(name):
+    """The process-group, mesh, profiling and sharded-search modules are
+    among those the import guards walk, and importing one alone loads no
+    JAX and no transformers, touches no CUDA state and joins no process
+    group."""
+    assert name in _module_names()
+    code = (f"import sys, torch, torch.distributed as dist, {name}\n"
+            f"bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{NEVER + LAZY_ONLY!r}]\n"
+            "sys.exit(1 if bad or torch.cuda.is_initialized()\n"
+            "         or dist.is_initialized() else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_smoke_needs_no_jax_flax_or_transformers():
+    """chip_smoke.py, imported alone, loads none of them (the card's machine
+    has none)."""
+    code = ("import sys, chip_smoke\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'transformers', 'repconc_tpu')]\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_create_mesh_refuses_cuda_without_a_gpu(monkeypatch):
+    """create_mesh(device="cuda") raises without a card: with no env
+    contract, and under one (before any rendezvous: no gloo stands in)."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    import torch.distributed as dist
+
+    from repconc_tpu_torch.core import distributed
+    from repconc_tpu_torch.core.mesh import create_mesh
+
+    for k in (distributed.ENV_COORDINATOR, distributed.ENV_NUM_PROCESSES,
+              distributed.ENV_PROCESS_ID) + distributed.TORCHRUN_VARS:
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError):
+        create_mesh(device="cuda")
+    monkeypatch.setenv(distributed.ENV_COORDINATOR, "127.0.0.1:1")
+    monkeypatch.setenv(distributed.ENV_NUM_PROCESSES, "2")
+    monkeypatch.setenv(distributed.ENV_PROCESS_ID, "0")
+    with pytest.raises(RuntimeError, match="cuda"):
+        create_mesh(device="cuda")
+    assert not dist.is_initialized()
 
 
 def test_train_package_imports_nothing_eagerly():

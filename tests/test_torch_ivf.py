@@ -414,13 +414,24 @@ def test_full_probe_cell_grouped_equals_flat_bf16(built):
 
 
 def test_serve_search_unported_options_raise(built):
-    """mesh= (a cell-sharded index) still raises; decoded serving is
-    ported: serve_search and CudaIVFIndex take it (on the CPU with the
-    pallas mode), and an unknown serving raises."""
+    """mesh= at world size 1 (a gloo group) serves the cell-sharded index:
+    the one-process cell-grouped result, bit for bit; mode="xla" under a
+    mesh raises (no cell-sharded scan, and never the unsharded index).
+    Decoded serving: serve_search and CudaIVFIndex take it (on the CPU with
+    the pallas mode), and an unknown serving raises."""
+    from test_torch_distributed import world1_mesh
+
     port = _port_index(built[0])
     q = built[4][:2]
-    with pytest.raises(NotImplementedError):
-        ivf.serve_search(port, q, mesh=object(), device="cpu")
+    want = ivf.serve_search(port, q, topk=5, nprobe=4, mode="pallas",
+                            device="cpu")
+    with world1_mesh() as mesh:
+        got = ivf.serve_search(port, q, topk=5, nprobe=4, mesh=mesh,
+                               device="cpu")
+        with pytest.raises(ValueError, match="xla"):
+            ivf.serve_search(port, q, mode="xla", mesh=mesh, device="cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
     s, i = ivf.serve_search(port, q, topk=5, nprobe=4, mode="pallas",
                             serving="decoded", device="cpu")
     assert s.shape == (2, 5) and (i >= 0).all()

@@ -189,7 +189,8 @@ def test_decoded_modes_and_store(built):
     builds the store and leaves the default; one dtype is resident at a
     time; decoded_bytes counts the store; set_centroids drops a stale store
     and rebuilds it when decoded is the default; an unknown serving raises;
-    serve_search takes the decoded path, mesh= still raises."""
+    serve_search takes the decoded path, and with mesh= at world size 1
+    (a gloo group) the cell-sharded decoded path, bit for bit."""
     index, _, _, cent, queries = built
     port = cuda_ivf.CudaIVFIndex(_port_index(index), device="cpu")
     assert port.serving == "adc" and port.store is None
@@ -215,9 +216,13 @@ def test_decoded_modes_and_store(built):
     s, _ = ivf.serve_search(_port_index(index), queries, topk=10, nprobe=4,
                             mode="pallas", serving="decoded", device="cpu")
     np.testing.assert_array_equal(s, s_dec)
-    with pytest.raises(NotImplementedError):
-        ivf.serve_search(_port_index(index), queries, mesh=object(),
-                         serving="decoded", device="cpu")
+    from test_torch_distributed import world1_mesh
+
+    with world1_mesh() as mesh:
+        s_mesh, _ = ivf.serve_search(_port_index(index), queries, topk=10,
+                                     nprobe=4, mode="pallas", mesh=mesh,
+                                     serving="decoded", device="cpu")
+    np.testing.assert_array_equal(s_mesh, s_dec)
 
 
 def test_decoded_int8_sums_are_exact_integers():

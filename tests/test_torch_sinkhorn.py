@@ -89,9 +89,15 @@ def test_small_epsilon_stays_finite():
 
 
 def test_process_group_not_ported():
+    """group= (the marginals across ranks) at world size 1, through a real
+    gloo process group joined by the env contract: the one-process
+    result, bit for bit. tests/test_torch_parallel.py holds two ranks
+    against JAX's axis_name."""
+    from test_torch_distributed import world1_mesh
+
     d = torch.from_numpy(make_distances(0))
-    for fn in (lambda: sinkhorn.center_distances(d, group=object()),
-               lambda: sinkhorn.sinkhorn_log(d, 0.05, 1, group=object()),
-               lambda: sinkhorn.sinkhorn_assign(d, 0.05, 1, group=object())):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            fn()
+    with world1_mesh() as mesh:
+        for fn in (lambda g: sinkhorn.center_distances(d, group=g),
+                   lambda g: sinkhorn.sinkhorn_log(d, 0.05, 20, group=g),
+                   lambda g: sinkhorn.sinkhorn_assign(d, 0.05, 20, group=g)):
+            assert torch.equal(fn(mesh.group), fn(None))

@@ -623,8 +623,19 @@ def test_cli_trains_and_jax_loads_its_dirs(toy_train, toy_model_dir, tmp_path):
         assert (out_dir / name / "vocab.txt").exists()
     meta = json.load(open(out_dir / "checkpoint" / "trainer_meta.json"))
     assert meta["step"] == 4
-    with pytest.raises(NotImplementedError, match="item 10"):
-        run_train_conc.main(argv[:-2] + ["--data_parallel"])
+    # --data_parallel at world size 1 (a gloo group joined by the env
+    # contract): the one-process run; tests/test_torch_distributed.py runs
+    # two ranks
+    from test_torch_distributed import world1_mesh
+
+    dp_argv = list(argv)
+    dp_argv[dp_argv.index("--output_dir") + 1] = str(tmp_path / "dp")
+    with world1_mesh():
+        dp = run_train_conc.main(dp_argv + ["--data_parallel"])
+    assert dp["history"] == out["history"]
+    assert dp["best_metric"] == out["best_metric"]
+    assert_params_close(to_jax_params(dp["model"]), to_jax_params(out["model"]),
+                        key_bias_bar=0)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):  # the default device is the card
             run_train_conc.main(argv[:-2])

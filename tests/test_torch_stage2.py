@@ -373,9 +373,16 @@ def test_train_resumes_saves_and_restarts(toy_jpq, tmp_path):
                          iter(_batches(t, 6)), hp, str(tmp_path / "a"),
                          device="cpu")
     assert fresh["step"] == 4 and len(fresh["history"]) == 2  # from step 0
-    with pytest.raises(NotImplementedError, match="item 10"):
-        stage2.train(model, t["codes"], iter([]), hp, str(tmp_path / "c"),
-                     mesh=object(), device="cpu")
+    # mesh= at world size 1 (a gloo group): the one-process run
+    from test_torch_distributed import world1_mesh
+
+    with world1_mesh() as mesh:
+        dp = stage2.train(port_model(t["config"], t["params"]), t["codes"],
+                          iter(_batches(t, 6)), hp, str(tmp_path / "c"),
+                          mesh=mesh, device="cpu")
+    assert dp["step"] == 4 and dp["history"] == out["history"]
+    assert_params_close(to_jax_params(dp["model"]), to_jax_params(model),
+                        key_bias_bar=0)
 
 
 def test_resume_continues_the_same_run(toy_jpq, tmp_path):
@@ -414,7 +421,8 @@ def test_cli_trains_and_jax_loads_its_dirs(toy_jpq, toy_model_dir, tmp_path,
     """run_train_jpq --device cpu on the toy model dir, over an --index_dir
     of codes.npy + corpus_ids.npy written with numpy or by the port's
     run_repconc_eval; the JAX package loads its best/ and final/. The
-    default device is the card, and --data_parallel raises."""
+    default device is the card; --data_parallel at world size 1 (a gloo
+    group) trains the one-process run."""
     from repconc_tpu_torch.cli import run_repconc_eval, run_train_jpq
 
     t = toy_jpq
@@ -459,8 +467,16 @@ def test_cli_trains_and_jax_loads_its_dirs(toy_jpq, toy_model_dir, tmp_path,
         assert (out_dir / name / "vocab.txt").exists()
     meta = json.load(open(out_dir / "checkpoint" / "trainer_meta.json"))
     assert meta["step"] == 4
-    with pytest.raises(NotImplementedError, match="item 10"):
-        run_train_jpq.main(argv[:-2] + ["--data_parallel"])
+    from test_torch_distributed import world1_mesh
+
+    dp_argv = list(argv)
+    dp_argv[dp_argv.index("--output_dir") + 1] = str(tmp_path / "dp")
+    with world1_mesh():
+        dp = run_train_jpq.main(dp_argv + ["--data_parallel"])
+    assert dp["history"] == out["history"]
+    assert dp["best_metric"] == out["best_metric"]
+    assert_params_close(to_jax_params(dp["model"]), to_jax_params(out["model"]),
+                        key_bias_bar=0)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):  # the default device is the card
             run_train_jpq.main(argv[:-2])
