@@ -51,12 +51,17 @@ shows where it stopped:
                 0.63838
   5 k2_check, k3_check, k4_check
                 K2 / K3 (cell-grouped IVF scan writing every score, bf16 /
-                int8 LUT) and K4 (int8 brute-force scan) against their plain
-                versions, at the IVF bench geometry (M=48, nlist=4096,
-                Lpad=256, Q=1200, nprobe=64, pairs from a real probe), an
-                M=12 layout with Lpad=2048, Lpad=640 and a single occupied
-                slot: scores to rtol=atol=1e-5; kernel, plain and bound
-                times, and the LUT bytes each tile re-stages
+                int8 LUT) against their plain versions, at the IVF bench
+                geometry (M=48, nlist=4096, Lpad=256, Q=1200, nprobe=64,
+                pairs from a real probe), an M=12 layout with Lpad=2048,
+                Lpad=640 and a single occupied slot: scores to
+                rtol=atol=1e-5; kernel, plain and bound times, and the LUT
+                bytes each tile re-stages. K4 (int8 brute-force scan)
+                bit-equal to its plain version at (Q, N, M) = (1200,
+                131,072, 12), (129, 100,003, 48), (1, 1000, 12), (37, 5003,
+                12), all-+127 and all--127 LUTs at M=48, K=32 with codes up
+                to 255, and N=1537; kernel, plain, bound and embedding_bag
+                times
   5b ivf_topk_check
                 the two passes of the fused IVF top-k (ivf_group_max,
                 ivf_filter), bf16 and int8, against their plain versions
@@ -1007,6 +1012,7 @@ def ivf_geometry(dev, Q, nlist, nprobe, D, seed):
 def phase_ivf_checks(dev):
     """K2, K3 and K4 against their plain versions on the card."""
     import torch
+    import torch.nn.functional as F
     from repconc_tpu_torch.index.adc import (group_size, quantize_lut_int8,
                                              score_codes_int8_reference)
     from repconc_tpu_torch.index.cuda_adc import adc_scores_int8
@@ -1078,18 +1084,35 @@ def phase_ivf_checks(dev):
         del codes, lut, lut_i8, scales, variants
         torch.cuda.empty_cache()
 
-    for Q, N, M in [(1200, 1 << 17, 12), (129, 100_003, 48), (1, 1000, 12),
-                    (37, 5003, 12)]:
+    # K4: the four timed shapes, then edge cases: all-+127 and all--127
+    # LUTs at gm=8 (a 16-bit lane's extremes), K=32 with codes up to 255
+    # (clamped), an N that is no multiple of the kernel's 512-doc chunk
+    k4_cases = [(1200, 1 << 17, 12, 256, "randn"), (129, 100_003, 48, 256, "randn"),
+                (1, 1000, 12, 256, "randn"), (37, 5003, 12, 256, "randn"),
+                (33, 1001, 48, 256, "plus127"), (33, 1001, 48, 256, "minus127"),
+                (17, 777, 12, 32, "randn"), (5, 1537, 12, 256, "randn")]
+    for case, (Q, N, M, Kc, kind) in enumerate(k4_cases):
         g = torch.Generator(device=dev).manual_seed(SEED + Q + N + M)
+        gm = group_size(M, Kc)
         lut_i8, scales = quantize_lut_int8(
-            torch.randn((Q, M, K), generator=g, device=dev), group_size(M, K))
-        codes = torch.randint(0, K, (N, M), generator=g, device=dev,
+            torch.randn((Q, M, Kc), generator=g, device=dev), gm)
+        if kind != "randn":
+            lut_i8.fill_(127 if kind == "plus127" else -127)
+        codes = torch.randint(0, 256, (N, M), generator=g, device=dev,
                               dtype=torch.uint8)
         got = adc_scores_int8(lut_i8, scales, codes)
         want = score_codes_int8_reference(lut_i8, scales, codes)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        torch.testing.assert_close(got, want, rtol=ADC_TOL, atol=ADC_TOL)
+        check(torch.equal(got, want),
+              f"K4 bit-equal to its plain version at Q={Q} N={N} M={M} "
+              f"K={Kc} {kind} (max abs err {err})")
+        if case >= 4:  # an edge case: checked, not timed
+            emit("k4_check", shape=dict(Q=Q, N=N, M=M, K=Kc), lut=kind,
+                 max_abs_err=err)
+            results["adc_scan_i8"][(Q, N, M, kind)] = dict(max_abs_err=err)
+            del lut_i8, scales, codes, got, want
+            continue
         ms = time_ms(lambda: adc_scores_int8(lut_i8, scales, codes))
         plain_ms = time_ms(lambda: score_codes_int8_reference(
             lut_i8, scales, codes), reps=3, warmup=1)
@@ -1098,8 +1121,23 @@ def phase_ivf_checks(dev):
                               Q * N * M)
         res = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                    max_abs_err=err, shape=dict(Q=Q, N=N, M=M, K=K))
+        if (Q, N, M) == (1200, 1 << 17, 12):
+            # one library call computing the same function up to fp32
+            # rounding: the dequantized (M * K, Q) f32 LUT, each entry times
+            # its group's scale, summed over each doc's M rows
+            weight = (lut_i8.float() * scales.repeat_interleave(gm, 1)[
+                :, :, None]).reshape(Q, M * K).T.contiguous()
+            bag = codes.long() + torch.arange(M, device=dev) * K
+            res["library_ms"] = time_ms(
+                lambda: F.embedding_bag(bag, weight, mode="sum"))
+            res["library_max_abs_err"] = float(
+                (F.embedding_bag(bag, weight, mode="sum").T - got).abs().max())
+            res["library_call"] = ("torch.nn.functional.embedding_bag(codes + "
+                                   "m * K, lut_i8 * scale (M * K, Q) f32, "
+                                   "mode='sum')")
+            del weight, bag
         results["adc_scan_i8"][(Q, N, M)] = res
-        emit("k4_check", library_ms=None, **res)
+        emit("k4_check", **{"library_ms": None, **res})
         del lut_i8, scales, codes, got, want
         torch.cuda.empty_cache()
     return results
@@ -3670,8 +3708,6 @@ NO_LIBRARY = {  # why a kernel has no one-call PyTorch yardstick
     "ivf_scan_bf16": "no single PyTorch call gathers per-tile LUTs",
     "ivf_scan_i8": "no single PyTorch call gathers per-tile LUTs with "
                    "per-group scales",
-    "adc_scan_i8": "no single PyTorch call sums int8 LUT entries per group "
-                   "and scales the groups",
     "ivf_group_max_bf16": "no single PyTorch call takes run maxima of "
                           "cell-grouped ADC scores",
     "ivf_filter_bf16": "no single PyTorch call keeps the docs of probed "

@@ -103,19 +103,31 @@ def group_size(M: int, K: int) -> int:
     raise ValueError(f"unsupported (M={M}, K={K})")
 
 
+# fp32(1 / 127). The JAX package's int8 scales divide by 127.0
+# (pallas_adc.py:144, pallas_ivf.py:433,541), but every caller runs them
+# inside jax.jit, where XLA computes x / 127.0 as x * fp32(1 / 127), 1 ulp
+# off the division for some x. The port multiplies, bit for bit with what
+# JAX serves.
+INV127 = float(np.float32(1.0 / 127.0))
+
+
 def quantize_lut_int8(lut: torch.Tensor, gm: int):
-    """Per-(query, group) symmetric int8 quantization (pallas_adc.py:133-146).
+    """Per-(query, group) symmetric int8 quantization (pallas_adc.py:133-146),
+    bit-equal to JAX's jitted quantize_lut_int8, the form every JAX caller
+    runs (_ivf_search_device and the sharded search, pallas_ivf.py:339-366,
+    :816-819).
 
     lut (Q, M, K) f32 -> (lut_i8 (Q, M, K) int8, scales (Q, M // gm) f32).
     Quantizes the plain layout viewed as (Q, G, gm * K): a group's amax
     does not depend on the TPU's k-major lane order (`permute_lut`), so the
-    values equal JAX's after undoing it. torch.round rounds half to even, as
-    jnp.round does.
+    values equal JAX's after undoing it. The scale is amax * INV127, as XLA
+    computes it; XLA leaves the division by the scale tensor a division.
+    torch.round rounds half to even, as jnp.round does.
     """
     Q, M, K = lut.shape
     grouped = lut.reshape(Q, M // gm, gm * K)
     amax = grouped.abs().amax(-1)
-    scale = amax.clamp(min=1e-12) / 127.0
+    scale = amax.clamp(min=1e-12) * INV127
     q = torch.round(grouped / scale[:, :, None]).clamp(-127, 127)
     return q.to(torch.int8).reshape(Q, M, K), scale
 

@@ -48,8 +48,8 @@ import torch
 
 from repconc_tpu_torch import build
 from repconc_tpu_torch.core.device import resolve_device
-from repconc_tpu_torch.index.adc import (RUN, build_lut, group_size,
-                                         quantize_lut_int8)
+from repconc_tpu_torch.index.adc import (INV127, RUN, build_lut,
+                                         group_size, quantize_lut_int8)
 from repconc_tpu_torch.index.cuda_adc import CudaADCIndex, select_topk
 from repconc_tpu_torch.index.ivf import IVFIndex, probe_cells
 from repconc_tpu_torch.parallel.sharded import gather_merge
@@ -605,9 +605,6 @@ def merge_spill(s: torch.Tensor, i: torch.Tensor, spill: Optional[CudaADCIndex],
 
 
 SERVINGS = ("adc", "decoded", "decoded_int8")
-# The JAX package's int8 scales are x / 127.0 inside jit, which XLA
-# computes as x * fp32(1 / 127): the port multiplies too, bit for bit.
-INV127 = 1.0 / 127.0
 
 
 @torch.no_grad()

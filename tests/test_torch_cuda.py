@@ -131,25 +131,53 @@ def test_ivf_scan_matches_plain(cuda, T, Q, nlist, Lpad, M, lut_dtype):
     assert bool((got[qidx == Q] == 0).all())
 
 
-@pytest.mark.parametrize("Q,N,M", [(1, 1, 12), (129, 1000, 12),
-                                   (37, 5003, 48), (1200, 131072, 12)])
-def test_adc_scan_int8_matches_plain(cuda, Q, N, M):
+# (Q, N, M, K, lut): random LUTs at ragged Q and N (N = 1001 and 5003 are
+# no multiple of the kernel's 512-doc chunk), all-+127 and all--127 LUTs at
+# gm=8 (a 16-bit lane's extremes), and K=32 with codes up to 255 (clamped)
+K4_CASES = [(1, 1, 12, 256, "randn"), (129, 1000, 12, 256, "randn"),
+            (37, 5003, 48, 256, "randn"), (1200, 131072, 12, 256, "randn"),
+            (33, 1001, 48, 256, "plus127"), (33, 1001, 48, 256, "minus127"),
+            (17, 777, 12, 32, "randn"), (5, 3, 7, 256, "randn")]
+
+
+@pytest.mark.parametrize("Q,N,M,K,lut_kind", K4_CASES)
+def test_adc_scan_int8_matches_plain(cuda, Q, N, M, K, lut_kind):
+    """K4 bit-equal to score_codes_int8_reference: exact group sums, the
+    same rounded f32 combine."""
     from repconc_tpu_torch.index.adc import (group_size, quantize_lut_int8,
                                              score_codes_int8_reference)
     from repconc_tpu_torch.index.cuda_adc import adc_scores_int8
 
-    g = torch.Generator(device=cuda).manual_seed(Q + N + M)
+    g = torch.Generator(device=cuda).manual_seed(Q + N + M + K)
     lut, scales = quantize_lut_int8(
-        torch.randn((Q, M, 256), generator=g, device=cuda), group_size(M, 256))
+        torch.randn((Q, M, K), generator=g, device=cuda), group_size(M, K))
+    if lut_kind != "randn":
+        lut.fill_(127 if lut_kind == "plus127" else -127)
     codes = torch.randint(0, 256, (N, M), generator=g, device=cuda,
                           dtype=torch.uint8)
     before = adc_scores_int8.launches
     got = adc_scores_int8(lut, scales, codes)
     torch.cuda.synchronize()
     assert adc_scores_int8.launches == before + 1
-    torch.testing.assert_close(got, score_codes_int8_reference(lut, scales,
-                                                               codes),
-                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, score_codes_int8_reference(lut, scales, codes))
+
+
+def test_adc_scan_int8_unaligned_codes(cuda):
+    """Codes one byte past an aligned address take the byte-wise code
+    reads, bit-equal all the same."""
+    from repconc_tpu_torch.index.adc import (quantize_lut_int8,
+                                             score_codes_int8_reference)
+    from repconc_tpu_torch.index.cuda_adc import adc_scores_int8
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    lut, scales = quantize_lut_int8(
+        torch.randn((20, 12, 256), generator=g, device=cuda), 4)
+    flat = torch.randint(0, 256, (999 * 12 + 1,), generator=g, device=cuda,
+                         dtype=torch.uint8)
+    codes = flat[1:].view(999, 12)
+    assert codes.data_ptr() % 4 != 0
+    assert torch.equal(adc_scores_int8(lut, scales, codes),
+                       score_codes_int8_reference(lut, scales, codes))
 
 
 def _random_ivf(seed, N=6000, M=12, K=256, dsub=4, nlist=64):

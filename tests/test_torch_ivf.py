@@ -7,14 +7,17 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repconc_tpu.index import ivf as jax_ivf
 from repconc_tpu.index import pallas_adc as jax_padc
 from repconc_tpu.index import pallas_ivf as jax_pivf
 from repconc_tpu.index.kmeans import pq_encode_chunked, pq_fit
+from repconc_tpu_torch import build
 from repconc_tpu_torch.index import adc, cuda_ivf, ivf
 from repconc_tpu_torch.index.cuda_adc import adc_scores_int8
+from repconc_tpu_torch.recipes import bench_k4
 
 
 def _clustered_index(seed, N=3000, D=32, M=4, K=32, nlist=16,
@@ -244,21 +247,46 @@ def test_exact_tile_grid_is_what_jax_occupies(Q, nlist, nprobe):
 
 # ---- quantization and the plain scorers ----------------------------------
 
+# quantize_lut_int8 as every JAX caller runs it: inside jit, where XLA
+# computes amax / 127.0 as amax * fp32(1 / 127)
+jax_quantize_lut_int8 = jax.jit(jax_padc.quantize_lut_int8,
+                                static_argnums=(1, 2))
+
+
+def _assert_quantize_matches_jax(lut, M, K):
+    """The port's int8 LUT and scales bit-equal to JAX's jitted ones."""
+    Q = lut.shape[0]
+    gm = adc.group_size(M, K)
+    assert gm == jax_padc._group_size(M, K)
+    want_q, want_s = jax_quantize_lut_int8(
+        jax_padc.permute_lut(jnp.asarray(lut), gm), gm, K)
+    got_q, got_s = adc.quantize_lut_int8(torch.from_numpy(lut), gm)
+    # undo the TPU's k-major lane order: (Q, G, K, gm) -> (Q, M, K)
+    want_q = np.asarray(want_q).reshape(Q, M // gm, K, gm).transpose(
+        0, 1, 3, 2).reshape(Q, M, K)
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    np.testing.assert_array_equal(got_q.numpy(), want_q)
+
+
 @pytest.mark.parametrize("M,K", [(4, 32), (8, 32), (12, 256)])
 def test_quantize_lut_int8_matches_jax(M, K):
     rng = np.random.default_rng(M + K)
     lut = rng.normal(size=(9, M, K)).astype(np.float32)
-    lut[0] = 0.0  # an all-zero row: scale floors at 1e-12 / 127
-    gm = adc.group_size(M, K)
-    assert gm == jax_padc._group_size(M, K)
-    want_q, want_s = jax_padc.quantize_lut_int8(
-        jax_padc.permute_lut(jnp.asarray(lut), gm), gm, K)
-    got_q, got_s = adc.quantize_lut_int8(torch.from_numpy(lut), gm)
-    # undo the TPU's k-major lane order: (Q, G, K, gm) -> (Q, M, K)
-    want_q = np.asarray(want_q).reshape(9, M // gm, K, gm).transpose(
-        0, 1, 3, 2).reshape(9, M, K)
-    np.testing.assert_array_equal(got_q.numpy(), want_q)
-    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    lut[0] = 0.0  # an all-zero row: scale floors at 1e-12 * fp32(1 / 127)
+    _assert_quantize_matches_jax(lut, M, K)
+
+
+@pytest.mark.parametrize("M", [12, 48])
+@pytest.mark.parametrize("magnitude", [1e-2, 1.0, 1e2])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_quantize_lut_int8_matches_jax_at_magnitudes(seed, magnitude, M):
+    """Bit-equal to the jitted JAX quantizer at LUT magnitudes 1e-2 to 1e2,
+    over enough (query, group) scales that a divided scale, 1 ulp off the
+    multiplied one for a few percent of them, would show."""
+    rng = np.random.default_rng(seed)
+    lut = (rng.normal(size=(64, M, 256)) * magnitude).astype(np.float32)
+    lut[0] = 0.0
+    _assert_quantize_matches_jax(lut, M, 256)
 
 
 def _tile_inputs(seed, Q, nlist, Lpad, M, K, nprobe):
@@ -279,7 +307,8 @@ def test_score_work_tiles_reference_matches_jax(Q, nlist, Lpad, M, K, nprobe,
                                                 lut_dtype):
     """The plain K2 / K3 against JAX's _score_work_tiles (Pallas interpret
     mode) on the same tiles: bf16 to 1e-5 (the MXU adds in another order),
-    int8 to 1e-6 (exact int32 parts, the same f32 combine)."""
+    int8 to 1e-6 (exact int32 parts, the same f32 combine), each side with
+    its own int8 LUT (JAX's from its jitted quantizer, as it serves)."""
     wc, qidx, codes, lut = _tile_inputs(Q + Lpad + M, Q, nlist, Lpad, M, K,
                                         nprobe)
     gm = adc.group_size(M, K)
@@ -288,7 +317,7 @@ def test_score_work_tiles_reference_matches_jax(Q, nlist, Lpad, M, K, nprobe,
         lut_i8, scales = adc.quantize_lut_int8(torch.from_numpy(lut), gm)
         lut_z = torch.cat([lut_i8, lut_i8.new_zeros((1, M, K))])
         scales_z = torch.cat([scales, scales.new_zeros((1, M // gm))])
-        j_q, j_s = jax_padc.quantize_lut_int8(perm, gm, K)
+        j_q, j_s = jax_quantize_lut_int8(perm, gm, K)
         j_lut = jnp.concatenate([j_q, jnp.zeros((1, M * K), jnp.int8)])
         j_scales = jnp.concatenate([j_s, jnp.zeros((1, M // gm))])
         tol = 1e-6
@@ -333,6 +362,34 @@ def test_score_codes_int8_reference_matches_pallas_interpret():
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
     assert torch.equal(adc_scores_int8(lut_i8, scales, torch.from_numpy(codes)),
                        got)
+
+
+@pytest.mark.parametrize("value", [127, -127])
+def test_score_codes_int8_reference_extremes_match_pallas_interpret(value):
+    """All-+127 and all--127 int8 LUTs at gm=8 (K4's lane extremes): the
+    plain K4 equals adc_scores_pallas_int8 exactly."""
+    M, K, Q, N = 8, 32, 128, 256
+    rng = np.random.default_rng(12)
+    codes = rng.integers(0, K, size=(N, M)).astype(np.uint8)
+    scales = (rng.random((Q, 1)) + 0.5).astype(np.float32)
+    lut_i8 = np.full((Q, M, K), value, np.int8)
+    want = np.asarray(jax_padc.adc_scores_pallas_int8(
+        jnp.asarray(lut_i8.reshape(Q, M * K)), jnp.asarray(scales),
+        jnp.asarray(codes.astype(np.int32)), K))
+    got = adc.score_codes_int8_reference(torch.from_numpy(lut_i8),
+                                         torch.from_numpy(scales),
+                                         torch.from_numpy(codes))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", sorted({**bench_k4.VARIANTS,
+                                         **bench_k4.DIAGNOSTICS}))
+def test_bench_k4_edits_match_the_kernel_source(name):
+    """Each variant recipes/bench_k4.py builds edits csrc/adc_scan_i8.cu at
+    one place per edit, so the bench times what it says it times."""
+    text = (build.CSRC_DIR / "adc_scan_i8.cu").read_text()
+    edits = {**bench_k4.VARIANTS, **bench_k4.DIAGNOSTICS}[name]
+    assert bench_k4.variant_text(text, edits) != text
 
 
 # ---- end to end ----------------------------------------------------------

@@ -287,13 +287,13 @@ def test_sweep_matches_jax_cli(case, sweep_inputs, tmp_path, jax_seeds):
     and recall columns (qps is a time and differs), and recall 1.0 at full
     probe but for int8 rounding.
 
-    One exception, the int8 LUT of ADC serving: inside jit XLA computes
-    its scales, amax / 127.0, as amax * fp32(1 / 127), which is 1 ulp off
-    the division for some scales; the port divides, as the JAX
-    source does and as JAX's eager quantize_lut_int8 (held bit-equal in
-    tests/test_torch_ivf.py) does. A near-tie doc can then cross the
-    top-10, so that column is held to within two of its Q * topk = 160
-    ids."""
+    One exception, the int8 LUT of ADC serving. Its quantizer is JAX's
+    jitted one bit for bit (tests/test_torch_ivf.py), but its input, the
+    fp32 LUT of build_lut, is not: torch's einsum and XLA's dot on the CPU
+    sum each entry's dsub products in another order, so entries differ by
+    an ulp. A group's amax, and with it its scale and int8 values, then
+    differs now and then, and a near-tie doc can cross the top-10, so that
+    column is held to within two of its Q * topk = 160 ids."""
     d = sweep_inputs
     argv = ["--codes_path", str(d / "codes.npy"),
             "--query_embed_path", str(d / "q.npy"),
