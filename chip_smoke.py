@@ -38,7 +38,10 @@ shows where it stopped:
                 scored; the corpus encoded again from a TokenCache built
                 with the hash tokenizer: the cache hit, the codes equal
                 the online encode's bit for bit; docs/s and the tokenize /
-                device_encode split of both encodes
+                device_encode split of both encodes; the port's WordPiece
+                tokenizer over a 7,905-word vocabulary of the same words:
+                tokenize-only docs/s with and without its per-word memo,
+                and a third, online encode with it: docs/s and split
   4b heldout_m12
                 the held-out search on the real M=12 model: its codes of
                 the regenerated 200,000-doc corpus and its 241 dev query
@@ -180,10 +183,11 @@ shows where it stopped:
                 step card == CPU at 100,003 codes (from the trained
                 weights in fp64 and from seeded weights in fp32; from the
                 trained weights in fp32 its ids are held, and each
-                device's gaps to the fp64 step: the card's gradients,
-                key biases and parameters at most twice the CPU's plus
-                1e-6, its loss and grad_norm at most twice the CPU's
-                gradient gap plus 1e-6);
+                card's gaps to the fp64 step at most the CPU's plus fixed
+                bars, TRAINED_FP32_BARS: gradients 5e-4 of an array's max,
+                parameters 1e-6, loss and grad_norm 1e-4 relative; the
+                card's step once more with TF32 on must exceed the CPU's
+                gaps by at least 3x the gradient and parameter bars);
                 the median step time, queries/s, the step split (encoder, search: LUT, pass 1,
                 tau, pass 2, sort; decode + loss; optimizer), peak memory,
                 validation s, K1's passes at Q=128, k=200 beside their
@@ -206,12 +210,25 @@ shows where it stopped:
                 the unsharded searches, ids but for exact ties; the times
                 of the sharded search at world 1, the gather and merge,
                 and the stage-1 step with mesh=; the group destroyed
-  9b stage1_scale
+  9b pipeline_recipe
+                the port's recipe as a user runs it, on the card, with
+                `transformers` not importable: make_pipeline_data synth
+                (the M=12 model's widths: bert-base, vocab 7,905, mean
+                pooling; 2 layers, 40,000 docs), then
+                repconc_tpu_torch/recipes/run_pipeline.sh stage by stage,
+                2-10 (M=12, K=256; 20 steps each in stages 7 and 9), and
+                stage 8 again with IVF=1 (nlist 40, nprobe 32): each
+                stage's files and wall time, finite MRR@10 in the dense,
+                conc and jpq metric.json; then stage 8 in this process
+                (run_repconc_eval.main, flat and IVF) with the launch
+                counters: K1's and K2's passes launched, the codes and
+                metric.json equal to the recipe's
+  9c stage1_scale
                 the reference's production stage-1 step (bert-base, M=48,
                 4096 queries x 12 docs, GradCache chunks of 128) in bf16
                 through repconc_tpu_torch/recipes/bench_stage1_scale.py:
-                1 warm-up step, 2 timed (the second split into its
-                parts); finite losses and gradients; step ms against its
+                1 warm-up step, 1 timed (split into its parts); finite
+                losses and gradients; step ms against its
                 bf16 bound (the fp32 bound beside it), docs/s, peak memory
   10 kernels    one JSON line per the port's kernel table
 
@@ -701,11 +718,12 @@ def phase_full_scan(dev):
 
 
 class HashTokenizer:
-    """Stand-in for a BERT tokenizer, so the smoke run needs no
-    `transformers`: lower-cased whitespace words hashed into the vocab between
-    [CLS] and [SEP], padded to the longest row (or to max_length with
-    padding="max_length", as the training collator asks), with the HF call
-    convention."""
+    """Stand-in for a BERT tokenizer in the phases written before the port
+    had its own (it keeps their data as it was; pipeline_recipe and
+    main_path's WordPiece encode run the real one): lower-cased whitespace
+    words hashed into the vocab between [CLS] and [SEP], padded to the
+    longest row (or to max_length with padding="max_length", as the
+    training collator asks), with the HF call convention."""
 
     pad_id, cls_id, sep_id, first_word_id = 0, 101, 102, 1000
     sep_token = "[SEP]"
@@ -739,6 +757,35 @@ class HashTokenizer:
         return {"input_ids": [r + [self.pad_id] * (width - len(r)) for r in rows],
                 "attention_mask": [[1] * len(r) + [0] * (width - len(r))
                                    for r in rows]}
+
+
+def synthetic_wordpiece(model_dir: str, vocab_size: int):
+    """The port's WordPiece tokenizer over a vocabulary of synthetic_data's
+    words, written as HF's BertTokenizerFast saves one: the specials, the
+    pieces ##0-##9 and w, then w0, w1, ... up to vocab_size entries, so the
+    rarer words split into pieces (w12345 -> w1234 ##5)."""
+    from repconc_tpu_torch.models.tokenization import load_tokenizer
+    from repconc_tpu_torch.recipes.make_pipeline_data import (SPECIALS,
+                                                              tokenizer_files)
+
+    head = SPECIALS + [f"##{d}" for d in range(10)] + ["w"]
+    vocab = head + [f"w{j}" for j in range(vocab_size - len(head))]
+    os.makedirs(model_dir, exist_ok=True)
+    for name, text in tokenizer_files(vocab).items():
+        with open(os.path.join(model_dir, name), "w") as f:
+            f.write(text)
+    return load_tokenizer(model_dir)
+
+
+def tokenize_docs_per_s(tok, texts, max_len: int, batch: int = 256) -> float:
+    """Tokenize-only docs/s of `tok` over `texts` in the encode's batches
+    (eval/encode.py::tokenize_batch), in this thread."""
+    from repconc_tpu_torch.eval.encode import tokenize_batch
+
+    t0 = time.perf_counter()
+    for i in range(0, len(texts), batch):
+        tokenize_batch(tok, texts[i:i + batch], max_len, "doc")
+    return len(texts) / (time.perf_counter() - t0)
 
 
 def synthetic_data(n_docs: int = 65_536, n_queries: int = 256,
@@ -807,7 +854,8 @@ def phase_main_path(dev):
     from repconc_tpu_torch.core.profiling import Stopwatch
     from repconc_tpu_torch.eval import encode as encode_mod
     from repconc_tpu_torch.eval.encode import (TokenCache, encode_corpus,
-                                               encode_queries, encode_texts)
+                                               encode_queries, encode_texts,
+                                               tokenize_batch)
     from repconc_tpu_torch.eval.pipeline import repconc_retrieval
     from repconc_tpu_torch.eval.run_io import write_run_tsv
     from repconc_tpu_torch.eval.trec import evaluate_run
@@ -885,6 +933,41 @@ def phase_main_path(dev):
     check(np.array_equal(cached_ids, corpus_ids) and np.array_equal(cached, codes),
           "codes from the token cache equal the online encode's bit for bit")
 
+    # the corpus again online with a real tokenizer, the port's WordPiece
+    # over a 7,905-entry vocabulary of these words (models/tokenization.py,
+    # pure Python in the producer thread): tokenize-only docs/s with the
+    # per-word memo (filled as it goes) and without it (the first 16,384
+    # docs), and the online encode's docs/s and split
+    ordered = [corpus[c] for c in corpus_ids]
+    with tempfile.TemporaryDirectory() as wp_dir:
+        wp_tok = synthetic_wordpiece(wp_dir, config.encoder.vocab_size)
+    tokenize_rate = {"memo": tokenize_docs_per_s(wp_tok, ordered, max_len)}
+    wp_tok.memo_limit = 0
+    tokenize_rate["no_memo"] = tokenize_docs_per_s(wp_tok, ordered[:16_384],
+                                                   max_len)
+    wp_tok.memo_limit = 1 << 20
+    wp_tok._memo.clear()
+    hash_rate = tokenize_docs_per_s(tok, ordered, max_len)
+    tokens = {name: float(tokenize_batch(t, ordered[::16], max_len,
+                                         "doc")[1].sum(1).mean())
+              for name, t in (("wordpiece", wp_tok), ("hash", tok))}
+    sw_wp = Stopwatch()
+    t0 = time.perf_counter()
+    wp_codes, wp_ids = encode_corpus(corpus, model, wp_tok, max_len,
+                                     batch_size=256, output="code", device=dev,
+                                     stopwatch=sw_wp)
+    wp_s = time.perf_counter() - t0
+    check(wp_codes.shape == codes.shape and np.array_equal(wp_ids, corpus_ids),
+          "the WordPiece encode gives every doc's codes")
+    print(f"main_path tokenize_docs_per_s wordpiece memo "
+          f"{tokenize_rate['memo']:.1f} no_memo "
+          f"{tokenize_rate['no_memo']:.1f} hash {hash_rate:.1f}; online "
+          f"encode docs_per_s wordpiece {len(corpus) / wp_s:.1f} (tokenize "
+          f"{sw_wp.totals['tokenize']:.2f} s, device_encode "
+          f"{sw_wp.totals['device_encode']:.2f} s; mean tokens "
+          f"{tokens['wordpiece']:.1f} against the hash tokenizer's "
+          f"{tokens['hash']:.1f})", flush=True)
+
     # 8 docs on the CPU and on the card: agreement to 1e-4 shows TF32 is off
     texts = [corpus[c] for c in corpus_ids[:8]]
     on_cpu = encode_texts(texts, cpu_model, tok, max_len, device="cpu")
@@ -904,7 +987,13 @@ def phase_main_path(dev):
          search_queries_per_s=len(queries) / t["search"], mrr_at_10=mrr10,
          recall_at_1000=metrics["recall"]["Recall@1000"],
          card_vs_cpu_max_abs_diff=cpu_gap,
-         tf32=torch.backends.cuda.matmul.allow_tf32)
+         tf32=torch.backends.cuda.matmul.allow_tf32,
+         wordpiece_tokenize_docs_per_s=tokenize_rate,
+         hash_tokenize_docs_per_s=hash_rate, mean_tokens=tokens,
+         wordpiece_encode_corpus_s=wp_s,
+         wordpiece_docs_per_s=len(corpus) / wp_s,
+         wordpiece_tokenize_s=sw_wp.totals["tokenize"],
+         wordpiece_device_encode_s=sw_wp.totals["device_encode"])
     return dict(launches=launches, codes=codes, corpus_ids=corpus_ids,
                 query_ids=query_ids, q_embeds=q_embeds, qrels=qrels,
                 centroids=model.centroids.detach().cpu().numpy(), plain=plain,
@@ -1894,8 +1983,9 @@ def phase_stage1_scale(dev):
     bert-base, M=48, 4096 queries x (1 positive + 11 negatives) = 49,152
     docs, GradCache chunks of 128, through
     repconc_tpu_torch/recipes/bench_stage1_scale.py (its batch and
-    hyperparameters are the JAX bench's): 1 warm-up step and 2 timed, the
-    second of them the split step; finite losses and gradients; step ms
+    hyperparameters are the JAX bench's): 1 warm-up step and 1 timed, the
+    split step (depth cut from 2 timed steps in PR 15, to keep the run
+    inside half its limit); finite losses and gradients; step ms
     against the bf16 bound, the fp32 bound beside it (not run), docs/s,
     peak memory."""
     import math
@@ -1903,7 +1993,7 @@ def phase_stage1_scale(dev):
     import torch
     from repconc_tpu_torch.recipes.bench_stage1_scale import run
 
-    out = run(steps=2, device=dev)
+    out = run(steps=1, device=dev)
     model = out.pop("model")
     check(all(math.isfinite(v) for v in out["metrics"].values()),
           f"stage1_scale: finite losses ({out['metrics']})")
@@ -2277,10 +2367,34 @@ def check_step_gaps(gaps, what: str) -> None:
           f"{what} card == CPU ({gaps})")
 
 
+# The fixed bars on the trained start's fp32 stage-2 step (step_gaps'
+# keys; PERF.md, section 7). Each device's step is compared with the CPU's
+# fp64 step, and the card's gap may exceed the CPU's by at most the bar
+# (EXCESS_BARS): fp32 rounding alone gave excesses up to 1.14e-4
+# (gradients, of an array's max), 7.6e-8 (parameters) and 6.0e-6 (loss,
+# grad_norm) over PRs 14-15, while TF32's excess was 2.16e-3 to 6.73e-3
+# and 1.99e-4 to 3.94e-4 on the first two (seven runs, PR 15), and must
+# stay at least 3x above those two bars in every run, or the check could
+# not catch it. The loss and grad_norm are two scalars whose rounding
+# errors partly cancel: TF32 moved them 1.05e-4 to 5.31e-4 and fp32 up to
+# 2.12e-5, too close for a bar 3x from both, so theirs bounds fp32
+# rounding only. The
+# key-bias and near-zero-gradient terms are held on each device
+# (ABSOLUTE_BARS): that gradient is zero in exact arithmetic under any
+# precision (fp32 1e-10, TF32 4e-8), and Adam's first step moves a
+# near-zero-gradient element by up to 2 lr under any rounding, TF32
+# included (1.94-1.96)
+TRAINED_FP32_BARS = {"grad_rel": 5e-4, "param_abs": 1e-6, "metrics_rel": 1e-4,
+                     "key_bias_grad_rel": 1e-6, "near_zero_grad_param_lr": 2.0}
+EXCESS_BARS = ("grad_rel", "param_abs", "metrics_rel")
+TF32_SEPARATED = ("grad_rel", "param_abs")  # TF32's excess >= 3 bars
+ABSOLUTE_BARS = ("key_bias_grad_rel", "near_zero_grad_param_lr")
+
+
 def phase_train_stage1(dev, warmup_dir: str):
     """Stage-1 training at full width through train/stage1.py::train (the
-    card has no `transformers`, so not through the CLI, whose tokenizer
-    loader needs it): from dense_front's warm-up model dir, as stage 7
+    CLI runs in pipeline_recipe; this phase keeps the hash tokenizer's
+    data): from dense_front's warm-up model dir, as stage 7
     starts (recipes/run_pipeline.sh:153), the M=12 config; the CLI's
     defaults (64 queries, one random negative each, query / doc lengths 16
     / 128, the constraint on, lr 2e-5, centroid lr 5e-4, clip 1.0), 10
@@ -2568,7 +2682,7 @@ def stage2_split_ms(model, hp, tx, batch, codes, n_docs: int, seeds,
 
 def phase_train_stage2(dev, stage1_model):
     """Stage-2 (JPQ) training at full width through train/stage2.py::train
-    (not the CLI: the card has no `transformers`): the M=12 config from
+    (the CLI runs in pipeline_recipe): the M=12 config from
     the weights train_stage1 ended with, saved as a model dir and read back
     with from_pretrained; 8,841,823 random M=12 codes on the card; 2,048
     queries of 32 tokens with 1-3 judged docs each; the stage-9 recipe's
@@ -2721,13 +2835,15 @@ def phase_train_stage2(dev, stage1_model):
         # against the CPU's fp64 step instead of against the other device:
         # its softmax over the negatives is spread (top weight 0.04-0.46
         # against about 1 from seeded weights) over logits up to about 440,
-        # so fp32 rounding alone puts each device up to 1.6e-4 of a
-        # gradient's max from the exact step, and the two devices up to
-        # 1.47e-4 apart, while in fp64 they agree within 1e-12 (PERF.md,
-        # section 6). The card's fp32 gaps to the fp64 step (gradients, key
-        # biases, parameters) are at most twice the CPU's plus 1e-6, its
-        # metrics at most twice the CPU's gradient gap plus 1e-6, and its
-        # near-zero-gradient elements within 2 lr
+        # so fp32 rounding alone puts each device up to 1.67e-4 of a
+        # gradient's max from the exact step, while in fp64 the two devices
+        # agree within 1e-12 (PERF.md, section 6). The card's fp32 gaps to
+        # the fp64 step may exceed the CPU's by fixed bars
+        # (TRAINED_FP32_BARS), set between fp32 rounding and what TF32
+        # gives on the same start: the card's step is run once more with
+        # TF32 on, and its gradient and parameter excesses must be at least
+        # 3x their bars, or the bars could not catch TF32 and the phase
+        # fails
         n_small = 100_003
         small = next(batches(8, SEED + 9))
         small["pos_docids"] %= n_small  # judged docs among the first n_small
@@ -2737,29 +2853,46 @@ def phase_train_stage2(dev, stage1_model):
         repconc_model.save_pretrained(seeded_dir, repconc_model.init_random_(
             repconc_model.RepConcModel(config),
             torch.Generator().manual_seed(SEED + 4), std=0.02))
+
+        def small_step(start_dir, dtype, d, use, tf32=False):
+            """(metrics, gradients, parameters after the step, the step's
+            negatives, query embeddings, starting centroids) of the 8-query
+            step on `d`; with tf32, TF32 on for the step (after the model
+            load, which turns it off) and restored after it."""
+            m = repconc_model.from_pretrained(start_dir, device=d).to(dtype)
+            c_start = m.centroids.detach().cpu().clone()
+            cc = codes[:n_small].to(d)
+            hp_small = stage2.Stage2Hparams(**dict(hp.__dict__,
+                                                   use_pallas_search=use))
+            bb = {key: torch.as_tensor(v).to(d) for key, v in small.items()}
+            flags = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
+            if tf32:
+                torch.backends.cuda.matmul.allow_tf32 = True
+                torch.backends.cudnn.allow_tf32 = True
+            try:
+                _, _, a = stage2.loss_fn(m, hp_small, bb, cc, n_small,
+                                         stage2.takes_kernel(use, d))
+                tx = stage1.make_optimizer(hp_small.as_stage1(), m)
+                metrics = stage2.make_train_step(m, hp_small, tx, cc)(bb)
+                check(not tf32 or torch.backends.cuda.matmul.allow_tf32,
+                      "TF32 stayed on through the TF32 step")
+            finally:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = flags
+            return ({key: float(v) for key, v in metrics.items()},
+                    {n: p.grad.cpu() for n, p in m.named_parameters()},
+                    {n: v.cpu() for n, v in m.state_dict().items()},
+                    a["neg_pids"].cpu(), a["q_embeds"].cpu(), c_start)
+
         small_gaps, ids_differ, near, steps_by, softmax = {}, {}, {}, {}, {}
         for start, start_dir, dtype in (
                 ("trained", init_dir, torch.float32),
                 ("trained_fp64", init_dir, torch.float64),
                 ("seeded", seeded_dir, torch.float32)):
-            step_out = {}
-            for where, d, use in (("cpu", "cpu", True), ("card", dev, None)):
-                m = repconc_model.from_pretrained(start_dir, device=d).to(dtype)
-                c_start = m.centroids.detach().cpu().clone()
-                cc = codes[:n_small].to(d)
-                hp_small = stage2.Stage2Hparams(**dict(hp.__dict__,
-                                                       use_pallas_search=use))
-                bb = {key: torch.as_tensor(v).to(d) for key, v in small.items()}
-                _, _, a = stage2.loss_fn(m, hp_small, bb, cc, n_small,
-                                         stage2.takes_kernel(use, d))
-                tx = stage1.make_optimizer(hp_small.as_stage1(), m)
-                metrics = stage2.make_train_step(m, hp_small, tx, cc)(bb)
-                step_out[where] = (
-                    {key: float(v) for key, v in metrics.items()},
-                    {n: p.grad.cpu() for n, p in m.named_parameters()},
-                    {n: v.cpu() for n, v in m.state_dict().items()},
-                    a["neg_pids"].cpu(), a["q_embeds"].cpu(), c_start)
-                del m, tx, cc
+            step_out = {where: small_step(start_dir, dtype, d, use)
+                        for where, d, use in (("cpu", "cpu", True),
+                                              ("card", dev, None))}
             (*_, i_cpu, q_cpu, c0), (*_, i_card, q_card, _) = (
                 step_out["cpu"], step_out["card"])
             lut_cpu = build_lut(q_cpu, c0).to(torch.bfloat16)
@@ -2799,29 +2932,44 @@ def phase_train_stage2(dev, stage1_model):
         check_step_gaps(small_gaps["trained_fp64"],
                         "8-query step from trained weights in fp64")
         check_step_gaps(small_gaps["seeded"], "8-query step from seeded weights")
+        steps_by["trained"]["card_tf32"] = small_step(
+            init_dir, torch.float32, dev, None, tf32=True)[:3]
         exact = steps_by.pop("trained_fp64")["cpu"]
         trained_vs_exact = {
             where: step_gaps(exact, out, hp.learning_rate,
                              hp.centroid_learning_rate)
             for where, out in steps_by.pop("trained").items()}
         del exact
-        # the loss and grad_norm are two scalars whose rounding errors
-        # partly cancel, so twice the CPU's own metric gap is noise (4.5e-6
-        # against 4.6e-7 in one run, 7.6e-7 against 1.3e-5 in another):
-        # they are held to twice the CPU's gradient gap, the step's
-        # rounding scale, plus 1e-6
-        card_t, cpu_t = trained_vs_exact["card"], trained_vs_exact["cpu"]
-        held = ("grad_rel", "key_bias_grad_rel", "param_abs")
-        trained_ratio = {k: card_t[k] / cpu_t[k] if cpu_t[k] else None
-                         for k in held + ("metrics_rel",)}
-        check(all(card_t[k] <= 2 * cpu_t[k] + 1e-6 for k in held)
-              and card_t["metrics_rel"] <= 2 * cpu_t["grad_rel"] + 1e-6
-              and card_t["near_zero_grad_param_lr"] <= 2.0,
+        tf32_gaps = trained_vs_exact.pop("card_tf32")
+        bars = TRAINED_FP32_BARS
+        # the card's excess over the CPU's gap: what both fp32 steps share
+        # (a near-tie that fp64 decides the other way, as in one run of PR
+        # 15 where both lay 4.07e-4 from it) cancels
+        excess = {key: trained_vs_exact["card"][key] - trained_vs_exact["cpu"][key]
+                  for key in EXCESS_BARS}
+        tf32_excess = {key: tf32_gaps[key] - trained_vs_exact["cpu"][key]
+                       for key in EXCESS_BARS}
+        tf32_over_bar = {key: tf32_excess[key] / bars[key]
+                         for key in EXCESS_BARS}
+        print("train_stage2 trained-start fp32 step against the CPU's fp64 "
+              "step: " + " ".join(
+                  f"{key} card {trained_vs_exact['card'][key]:.3g} cpu "
+                  f"{trained_vs_exact['cpu'][key]:.3g} card_tf32 "
+                  f"{tf32_gaps[key]:.3g} bar {bars[key]:.3g}"
+                  for key in bars), flush=True)
+        check(all(tf32_over_bar[key] >= 3.0 for key in TF32_SEPARATED),
+              f"the card's TF32 step lies at least 3x the bars further than "
+              f"the CPU's fp32 step from the fp64 step, so the bars can catch "
+              f"TF32 ({ {key: (tf32_excess[key], bars[key]) for key in TF32_SEPARATED} })")
+        check(all(excess[key] <= bars[key] for key in EXCESS_BARS),
               f"8-query fp32 step from trained weights: the card's gaps to "
-              f"the fp64 step within twice the CPU's plus 1e-6 "
-              f"({ {k: (card_t[k], cpu_t[k]) for k in held} }), its "
-              f"metrics {card_t['metrics_rel']} within twice the CPU's "
-              f"gradient gap plus 1e-6")
+              f"the fp64 step exceed the CPU's by at most the fixed bars "
+              f"({ {key: (excess[key], bars[key]) for key in EXCESS_BARS} })")
+        for where, gaps in trained_vs_exact.items():
+            check(all(gaps[key] <= bars[key] for key in ABSOLUTE_BARS),
+                  f"8-query fp32 step from trained weights on the {where}: "
+                  f"key biases and near-zero-gradient elements within their "
+                  f"bars ({ {key: (gaps[key], bars[key]) for key in ABSOLUTE_BARS} })")
 
         # timings on the trained model, dropout on: whole steps (host
         # clock around each, synchronised), the split, peak memory
@@ -2864,7 +3012,11 @@ def phase_train_stage2(dev, stage1_model):
          step_card_vs_cpu={"n_docs": n_small, "ids_differ": ids_differ,
                            "near_tie_bar": near, **small_gaps,
                            "trained_fp32_vs_cpu_fp64": trained_vs_exact,
-                           "trained_fp32_card_over_cpu": trained_ratio,
+                           "trained_tf32_card_vs_cpu_fp64": tf32_gaps,
+                           "trained_fp32_bars": TRAINED_FP32_BARS,
+                           "trained_fp32_card_excess": excess,
+                           "trained_tf32_excess": tf32_excess,
+                           "trained_tf32_over_bar": tf32_over_bar,
                            "softmax": softmax},
          phase_s=phase_s)
     print(f"train_stage2 step_ms {step_ms:.3f} queries_per_s "
@@ -3269,8 +3421,9 @@ def dense_topk_agrees(queries, corpus, scores, ids, rows: int = 1 << 18):
 
 def phase_dense_front(dev, root: str):
     """Stages 0 and 2-5 chained at the M=12 checkpoint's encoder widths,
-    through the functions the CLIs call (the card has no `transformers`;
-    HashTokenizer stands in), then stage 6's retrieval and miner from the
+    through the functions the CLIs call (HashTokenizer stands in, which
+    keeps this phase's data; pipeline_recipe runs the CLIs and the real
+    tokenizer), then stage 6's retrieval and miner from the
     warm-up index. Leaves root/warmup_model for train_stage1."""
     import copy
 
@@ -3647,6 +3800,198 @@ def phase_dense_scale(dev):
     return dict(search_ms=search_ms, bound=bound)
 
 
+# pipeline_recipe's configuration: the M=12 model's widths (bert-base, the
+# 7,905-word synthetic vocabulary, mean pooling, M=12, K=256), depth and
+# scale cut to fit about 150 s; each cut is printed. 40,000 docs and 32 of
+# 40 cells are the least that makes both passes of each search run at
+# top-1000: K1's pass 1 needs 1,000 groups of 32 docs, K2's a probe of
+# 1,000 runs of 32 (nprobe * Lpad / 32, Lpad at least the mean cell of
+# 1,000 docs); below that every doc passes and pass 1 is skipped
+RECIPE_DOCS, RECIPE_LAYERS = 40_000, 2
+RECIPE_ENV = {"POOLING": "mean", "METRIC_DENSE": "METRIC_IP", "M": "12",
+              "GLOBAL_BATCH": "64", "CONC_STEPS": "20", "EVAL_STEPS": "20",
+              "JPQ_STEPS": "20", "NLIST": "40", "NPROBE": "32"}
+RECIPE_CUTS = {
+    "encoder_layers": f"{RECIPE_LAYERS} of bert-base's 12 (widths kept)",
+    "corpus": f"{RECIPE_DOCS:,} synthetic docs (make_pipeline_data synth), "
+              "not MS MARCO's 8,841,823",
+    "queries": "4,000 train and 500 dev (the maker's defaults)",
+    "stage_7": "20 steps at 64 queries, one validation (the recipe: "
+               "2,000 steps at 4,096, every 40)",
+    "stage_9": "20 steps (the recipe: 4,000) at the recipe's 128 queries",
+    "ivf": "nlist 40, nprobe 32 (the recipe: 5,000 and 64, for 8.8 M docs)"}
+RECIPE_STAGES = ("2", "3", "4", "5", "6", "7", "8", "9", "10")
+RECIPE_OUTPUTS = {  # each stage's files, under OUT_ROOT
+    "2": ("dense_model/config.json",),
+    "3": ("dense/corpus_embeds.npy", "dense/dev/run.tsv",
+          "dense/dev/metric.json"),
+    "4": ("valid/corpus.tsv", "valid/queries.tsv", "valid/qrels.tsv"),
+    "5": ("m12/warmup_model/params.msgpack", "m12/warmup_index/codes.npy"),
+    "6": ("m12/warmup_run/train/run.tsv", "hardneg.json"),
+    "7": ("m12/conc/final/params.msgpack",),
+    "8": ("m12/conc_index/codes.npy", "m12/conc_index/dev/run.tsv",
+          "m12/conc_index/dev/metric.json"),
+    "9": ("m12/jpq/final/params.msgpack",),
+    "10": ("m12/jpq_index/dev/metric.json",)}
+
+
+def recipe_env(root: str) -> dict:
+    """The environment of the recipe's processes: this interpreter's
+    directory first on PATH, so that its `python` runs the CLIs, and a
+    `transformers` package that raises on import first on PYTHONPATH (the
+    rest of PYTHONPATH kept)."""
+    import shutil
+
+    block = os.path.join(root, "block", "transformers")
+    os.makedirs(block)
+    with open(os.path.join(block, "__init__.py"), "w") as f:
+        f.write("raise ImportError('transformers is not installed here')\n")
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable) + os.pathsep
+               + os.environ["PATH"], PYTHONPATH=os.path.dirname(block) + (
+                   os.pathsep + path if path else ""), DEVICE="cuda")
+    python = shutil.which("python", path=env["PATH"])
+    check(python is not None and os.path.samefile(python, sys.executable),
+          f"`python` on the recipe's PATH is this interpreter ({python})")
+    return env
+
+
+def run_logged(cmd, env, log_path: str, timeout: int = 600) -> float:
+    """Run `cmd` with its output in `log_path`; its wall seconds. A failure
+    raises with the log's tail."""
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.run(cmd, env=env, stdout=log, stderr=subprocess.STDOUT,
+                              timeout=timeout)
+    if proc.returncode != 0:
+        with open(log_path) as f:
+            tail = f.read()[-4000:]
+        raise RuntimeError(f"{' '.join(cmd)} exited {proc.returncode}:\n{tail}")
+    return time.perf_counter() - t0
+
+
+def phase_pipeline_recipe(dev):
+    """The port's recipe as a user runs it: make_pipeline_data synth, then
+    `bash repconc_tpu_torch/recipes/run_pipeline.sh <env> <stage>` for stages
+    2-10 on the card (subprocesses, the real CLIs, the port's WordPiece
+    tokenizer, `transformers` not importable), then stage 8 again with IVF=1;
+    then stage 8 in this process through run_repconc_eval.main with the
+    launch counters, flat and IVF, whose metric.json must equal the
+    recipe's. Each stage's files, finite MRR@10 in the dense, conc and jpq
+    metric.json, each stage's wall time."""
+    import numpy as np
+    import torch
+    from repconc_tpu_torch.cli import run_repconc_eval
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    driver = os.path.join(repo, "repconc_tpu_torch", "recipes",
+                          "run_pipeline.sh")
+    torch.cuda.empty_cache()
+    emit("pipeline_recipe_setup", cuts=RECIPE_CUTS, env=RECIPE_ENV,
+         docs=RECIPE_DOCS, encoder_layers=RECIPE_LAYERS)
+    with tempfile.TemporaryDirectory() as root:
+        env = recipe_env(root)
+        blocked = subprocess.run(["python", "-c", "import transformers"],
+                                 env=env, capture_output=True, text=True)
+        check(blocked.returncode != 0 and "not installed here" in blocked.stderr,
+              "transformers is not importable in the recipe's processes")
+        ws = os.path.join(root, "ws")
+        out_root = os.path.join(ws, "experiments", "synth")
+        stage_s = {"data": run_logged(
+            ["python", "-m", "repconc_tpu_torch.recipes.make_pipeline_data",
+             "synth", "--out_dir", ws, "--n_docs", str(RECIPE_DOCS),
+             "--hidden_layers", str(RECIPE_LAYERS)],
+            dict(env, PYTHONPATH=repo + os.pathsep + env["PYTHONPATH"]),
+            os.path.join(root, "data.log"))}
+        env_file = os.path.join(root, "synth.env")
+        with open(env_file, "w") as f:
+            f.write("FAMILY=synth\n"
+                    f"HF_MODEL_DIR={ws}/models/synth-bert-base\n"
+                    f"DATA_DIR={ws}/data\nOUT_ROOT={out_root}\n"
+                    + "".join(f"{k}={v}\n" for k, v in RECIPE_ENV.items()))
+        for stage in RECIPE_STAGES:
+            stage_s[stage] = run_logged(
+                ["bash", driver, env_file, stage], env,
+                os.path.join(root, f"stage{stage}.log"))
+            missing = [p for p in RECIPE_OUTPUTS[stage]
+                       if not os.path.exists(os.path.join(out_root, p))]
+            check(not missing, f"stage {stage} wrote its files ({missing})")
+            print(f"pipeline_recipe stage {stage} {stage_s[stage]:.1f} s",
+                  flush=True)
+        metrics = {}
+        for name in ("dense/dev", "m12/conc_index/dev", "m12/jpq_index/dev"):
+            with open(os.path.join(out_root, name, "metric.json")) as f:
+                metrics[name] = json.load(f)
+            check(np.isfinite(metrics[name]["mrr"]["MRR@10"]),
+                  f"{name}/metric.json has a finite MRR@10")
+        flat_metric = metrics["m12/conc_index/dev"]
+        # stage 8 skips a query dir that holds a metric.json: the flat run's
+        # dir is moved aside, as a user keeping both would
+        os.rename(os.path.join(out_root, "m12/conc_index/dev"),
+                  os.path.join(out_root, "m12/conc_index/dev_flat"))
+        stage_s["8_ivf"] = run_logged(
+            ["bash", driver, env_file, "8"], dict(env, IVF="1"),
+            os.path.join(root, "stage8_ivf.log"))
+        with open(os.path.join(out_root, "m12/conc_index/dev/metric.json")) as f:
+            ivf_metric = json.load(f)
+        check(np.isfinite(ivf_metric["mrr"]["MRR@10"]),
+              "the IVF stage 8's metric.json has a finite MRR@10")
+        print(f"pipeline_recipe stage 8 IVF=1 {stage_s['8_ivf']:.1f} s",
+              flush=True)
+
+        # stage 8 in this process, as the recipe runs it, with the counters
+        data = os.path.join(ws, "data")
+        inproc = os.path.join(root, "inproc")
+        conc = os.path.join(out_root, "m12", "conc")  # best_or_final
+        conc = os.path.join(conc, "best" if os.path.isdir(
+            os.path.join(conc, "best")) else "final")
+        args = ["--model_name_or_path", conc,
+                "--corpus_path", os.path.join(data, "corpus.tsv"),
+                "--query_path", os.path.join(data, "queries.dev.small.tsv"),
+                "--qrel_path", os.path.join(data, "qrels.dev.small.tsv"),
+                "--out_corpus_dir", os.path.join(inproc, "index"),
+                "--max_seq_length", "512", "--topk", "1000"]
+        launches, inproc_s, inproc_metric = {}, {}, {}
+        for kind, extra in (("flat", []), ("ivf", [
+                "--index_type", "ivf", "--nlist", RECIPE_ENV["NLIST"],
+                "--nprobe", RECIPE_ENV["NPROBE"]])):
+            out_dir = os.path.join(inproc, kind)
+            reset_launches()
+            t0 = time.perf_counter()
+            run_repconc_eval.main(args + ["--out_query_dir", out_dir] + extra)
+            torch.cuda.synchronize()
+            inproc_s[kind] = time.perf_counter() - t0
+            launches[kind] = launch_counts()
+            with open(os.path.join(out_dir, "metric.json")) as f:
+                inproc_metric[kind] = json.load(f)
+        check(np.array_equal(
+            np.load(os.path.join(inproc, "index", "codes.npy")),
+            np.load(os.path.join(out_root, "m12/conc_index/codes.npy"))),
+            "the in-process encode's codes equal the recipe's bit for bit")
+        check(inproc_metric["flat"] == flat_metric
+              and inproc_metric["ivf"] == ivf_metric,
+              "the in-process stage 8's metric.json equals the recipe's, "
+              "flat and IVF")
+        flat, ivf = launches["flat"], launches["ivf"]
+        check(flat["adc_group_max"] > 0 and flat["adc_filter"] > 0
+              and flat["adc_scan"] == 0,
+              f"the flat stage 8 ran K1's two passes ({flat})")
+        check(ivf["ivf_group_max_bf16"] > 0 and ivf["ivf_filter_bf16"] > 0
+              and ivf["ivf_scan_bf16"] == 0,
+              f"the IVF stage 8 ran K2's two passes ({ivf})")
+    phase_s = time.perf_counter() - t_phase
+    mrr = {k: v["mrr"]["MRR@10"] for k, v in metrics.items()}
+    mrr["m12/conc_index/dev ivf"] = ivf_metric["mrr"]["MRR@10"]
+    emit("pipeline_recipe", stage_s=stage_s, mrr_at_10=mrr,
+         launches=launches, inproc_stage8_s=inproc_s, cuts=RECIPE_CUTS,
+         phase_s=phase_s)
+    print("pipeline_recipe stage_s " + " ".join(
+        f"{k} {v:.1f}" for k, v in stage_s.items()), flush=True)
+    print(card_line(), flush=True)
+    return dict(launches=launches)
+
+
 def build_all():
     """nvcc on every source at once, one thread each (each build is its
     own process); one build line per source with ptxas's registers and
@@ -3757,6 +4102,7 @@ def main() -> int:
     jpq_run = phase_train_stage2(dev, stage1_model)
     parallel = phase_data_parallel(dev, stage1_model, scale_index)
     del stage1_model, scale_index
+    recipe = phase_pipeline_recipe(dev)
     phase_stage1_scale(dev)
 
     # launches on the paths: both passes of the K1 top-k on the flat main
@@ -3767,24 +4113,28 @@ def main() -> int:
     # no path: the passes took the place of the first two, and K4 has none
     # in the JAX package either. Their launches there must stay 0; k1_check,
     # k2_check, k3_check and k4_check hold them against their plain versions
-    # This slice's paths: the balanced build's search (K2's passes, K1 for
+    # PR 12's paths: the balanced build's search (K2's passes, K1 for
     # the spill), decoded serving (K1 for the spill merges) and
     # run_ivf_sweep (K1's passes for the exact baseline and the spill,
-    # K2's or K3's passes for each nprobe).
+    # K2's or K3's passes for each nprobe). PR 15's: pipeline_recipe's
+    # stage 8 in process, flat and IVF.
     on_paths = [main_path["launches"], held_out["launches"],
                 *ivf_runs.values(),
                 *(r["launches"] for r in ivf_scale.values()),
                 jpq_run["launches"], balanced["launches"],
                 decoded["launches"], decoded["scale_launches"],
-                *sweep.values(), parallel["launches"]]
+                *sweep.values(), parallel["launches"],
+                *recipe["launches"].values()]
+    # This slice's path: pipeline_recipe's stage 8 in process, flat (K1's
+    # passes) and IVF (K2's passes; K1's for the spill)
+    k1_paths = (main_path["launches"], held_out["launches"],
+                recipe["launches"]["flat"])
     launches = {
         "adc_scan": (sum(r["adc_scan"] for r in on_paths), None),
-        "adc_group_max": (main_path["launches"]["adc_group_max"]
-                          + held_out["launches"]["adc_group_max"],
-                          "main_path + heldout_m12"),
-        "adc_filter": (main_path["launches"]["adc_filter"]
-                       + held_out["launches"]["adc_filter"],
-                       "main_path + heldout_m12"),
+        "adc_group_max": (sum(r["adc_group_max"] for r in k1_paths),
+                          "main_path + heldout_m12 + pipeline_recipe flat"),
+        "adc_filter": (sum(r["adc_filter"] for r in k1_paths),
+                       "main_path + heldout_m12 + pipeline_recipe flat"),
         "ivf_scan_bf16": (sum(r["ivf_scan_bf16"] for r in on_paths), None),
         "ivf_scan_i8": (sum(r["ivf_scan_i8"] for r in on_paths), None),
         "adc_scan_i8": (sum(r["adc_scan_i8"] for r in on_paths), None),
@@ -3793,6 +4143,10 @@ def main() -> int:
         for p in ("ivf_group_max", "ivf_filter"):
             launches[f"{p}_{kind}"] = (ivf_runs[run][f"{p}_{kind}"],
                                        f"ivf_main_path {run}")
+    for p in ("ivf_group_max_bf16", "ivf_filter_bf16"):
+        n, path = launches[p]
+        launches[p] = (n + recipe["launches"]["ivf"][p],
+                       path + " + pipeline_recipe ivf")
     timed = {
         "adc_scan": dict(k1[(1200, 1 << 17, 12)], max_abs_err=worst,
                          shape={"Q": 1200, "N": 1 << 17, "M": 12, "K": 256}),
@@ -3884,7 +4238,9 @@ def main() -> int:
         if name in ("adc_group_max", "adc_filter"):
             entry["launches_by_path"] = {
                 "main_path": main_path["launches"][name],
-                "heldout_m12": held_out["launches"][name]}
+                "heldout_m12": held_out["launches"][name],
+                "pipeline_recipe_flat": recipe["launches"]["flat"][name],
+                "pipeline_recipe_ivf_spill": recipe["launches"]["ivf"][name]}
             entry["launches_elsewhere"] = {
                 k: v for k, v in elsewhere.items()}
             p = "pass1" if name == "adc_group_max" else "pass2"
@@ -3895,6 +4251,10 @@ def main() -> int:
         for k in ("ivf_scale_ms", "ivf_scale_bound_ms", "ivf_scale_bound_by"):
             if k in t:
                 entry[k] = t[k]
+        if name in ("ivf_group_max_bf16", "ivf_filter_bf16"):
+            entry["launches_by_path"] = {
+                "ivf_main_path": ivf_runs["full_bf16"][name],
+                "pipeline_recipe_ivf": recipe["launches"]["ivf"][name]}
         if name.startswith(("ivf_group_max", "ivf_filter")):
             entry["launches_elsewhere"] = {
                 path: ({sub: r[name] for sub, r in runs.items()}

@@ -2,8 +2,8 @@
 
 It grows beside the JAX package, which stays the reference, one slice at a
 time. This package imports torch, numpy and the standard library at module
-level and nothing of repconc_tpu; `transformers` is imported lazily inside
-the few functions that need a real tokenizer.
+level and nothing of repconc_tpu, and no `transformers`: it tokenizes with
+its own BERT WordPiece and RoBERTa byte-level BPE (models/tokenization.py).
 
 Layer map (the same names as repconc_tpu, where a module exists yet):
   core/    config, model dirs (numpy-only readers and writers of
@@ -12,7 +12,7 @@ Layer map (the same names as repconc_tpu, where a module exists yet):
            stopwatch, logging
   models/  the BERT-family dense encoder (fp32 or bf16 activations), the
            RepCONC head, flax-tree import and export, HF checkpoints, the
-           adapter tokenizers
+           WordPiece and byte-level BPE tokenizers and the adapters
   quant/   PQ codebook distances, argmin and Sinkhorn-constrained encode,
            decode, the training losses
   index/   dense flat search, ADC search (K1), k-means (plain and
@@ -28,7 +28,9 @@ Layer map (the same names as repconc_tpu, where a module exists yet):
            run_train_conc, run_repconc_eval, run_train_jpq, and
            run_ivf_sweep
   parallel/ corpus-sharded search and data-parallel encoding across ranks
-  recipes/ bench_stage1_scale, the production stage-1 step on the card
+  recipes/ the pipeline driver (run_pipeline.sh, run_toy.sh) and its data
+           maker, bench_stage1_scale (the production stage-1 step on the
+           card), bench_k4, multi_gpu_check
   csrc/    hand-written CUDA kernels, built with nvcc at first use (build.py)
 """
 

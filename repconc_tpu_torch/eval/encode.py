@@ -99,8 +99,11 @@ class TokenCache:
     @staticmethod
     def tokenizer_fingerprint(tokenizer) -> str:
         """sha1 of the class name and the vocab, in id order; the repr of a
-        tokenizer without `get_vocab` (encode.py:90-100)."""
-        h = hashlib.sha1(type(tokenizer).__name__.encode())
+        tokenizer without `get_vocab` (encode.py:90-100). The port's
+        tokenizers give the name of the HF class each stands for
+        (`hf_class_name`), so each package opens the other's cache."""
+        name = getattr(tokenizer, "hf_class_name", None) or type(tokenizer).__name__
+        h = hashlib.sha1(name.encode())
         try:
             vocab = tokenizer.get_vocab()
             for tok, idx in sorted(vocab.items(), key=lambda kv: kv[1]):

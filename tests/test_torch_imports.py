@@ -1,7 +1,7 @@
 """Guards of what the port may load, so that it starts where only torch,
 numpy, nvcc and the standard library are installed (no jax, flax, optax,
-transformers, msgpack or safetensors), and builds its kernels with plain
-nvcc rather than torch.utils.cpp_extension."""
+transformers, tokenizers, msgpack or safetensors), and builds its kernels
+with plain nvcc rather than torch.utils.cpp_extension."""
 import ast
 import os
 import pathlib
@@ -18,8 +18,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "repconc_tpu_torch"
 SOURCES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 NEVER = ("jax", "flax", "optax", "orbax", "msgpack",  # nowhere, not
-         "safetensors", "repconc_tpu")                  # even lazily
-LAZY_ONLY = ("transformers",)  # inside functions only
+         "safetensors", "repconc_tpu",                  # even lazily
+         "transformers", "tokenizers")  # the port's own tokenizers (PR 15)
+LAZY_ONLY = ()  # inside functions only
 # the modules of stage-1 and stage-2 training and of the hard-negative
 # miner, each guarded by the tests below
 TRAINING_MODULES = ["repconc_tpu_torch.train", "repconc_tpu_torch.train.data",
@@ -62,6 +63,14 @@ SLICE10_MODULES = ["repconc_tpu_torch.core.distributed",
                    "repconc_tpu_torch.parallel",
                    "repconc_tpu_torch.parallel.sharded",
                    "repconc_tpu_torch.recipes.multi_gpu_check"]
+
+# the modules of the port's own tokenizers and of its pipeline recipe, each
+# guarded by the tests below
+SLICE12_MODULES = ["repconc_tpu_torch.models.tokenization",
+                   "repconc_tpu_torch.models.unicode_tables",
+                   "repconc_tpu_torch.models.adapters",
+                   "repconc_tpu_torch.recipes.make_pipeline_data",
+                   "repconc_tpu_torch.recipes.cli_step_times"]
 
 
 def _module_names():
@@ -166,6 +175,48 @@ def test_slice10_module_is_guarded(name):
             f"{NEVER + LAZY_ONLY!r}]\n"
             "sys.exit(1 if bad or torch.cuda.is_initialized()\n"
             "         or dist.is_initialized() else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("name", SLICE12_MODULES)
+def test_slice12_module_is_guarded(name):
+    """The tokenizers, the adapters and the recipe's data maker are among
+    those the import guards walk, and importing one alone loads no
+    transformers, no tokenizers and no regex, and touches no CUDA state."""
+    assert name in _module_names()
+    code = (f"import sys, torch, {name}\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('transformers', 'tokenizers', 'regex')]\n"
+            "sys.exit(1 if bad or torch.cuda.is_initialized() else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("cli", ["run_repconc_eval", "run_train_conc",
+                                 "run_train_jpq", "run_train_dense",
+                                 "run_dense_eval", "run_pretokenize"])
+def test_tokenizing_clis_run_without_transformers(cli, tmp_path):
+    """Each CLI that loads a tokenizer loads the port's: with a
+    `transformers` that raises on import first on sys.path, its tokenizer
+    loads from a model dir and tokenizes."""
+    block = tmp_path / "transformers"
+    block.mkdir()
+    (block / "__init__.py").write_text("raise ImportError('blocked')\n")
+    d = tmp_path / "tok"
+    d.mkdir()
+    (d / "vocab.txt").write_text("\n".join(
+        ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "hello", "world"]))
+    code = (f"import sys; sys.path.insert(0, {str(tmp_path)!r})\n"
+            f"import repconc_tpu_torch.cli.{cli} as cli\n"
+            "from repconc_tpu_torch.models.adapters import "
+            "load_adapter_tokenizer\n"
+            f"tok = load_adapter_tokenizer({str(d)!r})\n"
+            "ids = tok(['hello world', 'Hello'], padding=True)['input_ids']\n"
+            "assert ids == [[2, 5, 6, 3], [2, 5, 3, 0]], ids\n"
+            "sys.exit(1 if 'transformers' in sys.modules else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
