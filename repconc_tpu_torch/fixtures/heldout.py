@@ -1,13 +1,22 @@
-"""The held-out check of the main path on the real M=12 model: the inputs of
-its flat search, kept as a fixture in `heldout_m12/`, and the comparisons
-of its runs.
+"""The held-out check on real M=12 models: the inputs of a leg's flat
+search, kept as a fixture, and the comparisons of its runs. One fixture a
+leg:
 
-The fixture is cut from one CPU run of the port's run_repconc_eval with
-the M=12 RepCONC checkpoint (artifacts/r5h_m12_conc_best.tar, best/) over
-the held-out task split of the seeded synthetic corpus
-(recipes/synthetic/make_synth_data.py --n_docs 200000, complete_qrels.py
---splits train,dev.small, split_queries_heldout.py; data_task), at
---max_seq_length 128 --topk 1000, as recipes/run_pipeline.sh stage 8 runs:
+  heldout_m12/      RepCONC: the M=12 RepCONC checkpoint
+                    (artifacts/r5h_m12_conc_best.tar, best/), as
+                    recipes/run_pipeline.sh stage 8 runs it
+  heldout_m12_opq/  OPQ: the warm-up model that stage 5 fits on the dense
+                    export (artifacts/r5h_export_hf.tar), as the recipe's
+                    opq-eval runs it (repconc_tpu_torch/recipes/
+                    heldout_matrix.sh, LEGS="dense opq")
+  heldout_dense/    dense: stages 2-3 on the same export; its 614 MB of
+                    corpus embeddings fit no checkout, so it holds only
+                    the CPU run's metric.json (dense/dev/metric.json)
+
+Each is cut from one CPU run of the port's run_repconc_eval over the
+held-out task split of the seeded synthetic corpus (make_pipeline_data.py
+synth --n_docs 200000, complete-qrels --splits train,dev.small,
+split-heldout; data_task), at --max_seq_length 128 --topk 1000:
 
   search_inputs.npz  codes (200000, 12) uint8 and corpus_ids, in encode
                      order; qids and query_embeds (241, 768) fp32, in qid
@@ -22,10 +31,13 @@ docs/heldout_r5/m12_conc_index_dev.json.
       --corpus_dir <out_corpus_dir> --query_dir <out_query_dir> \\
       --model_dir <best/> --qrel_path <data_task>/qrels.dev.small.tsv
   python -m repconc_tpu_torch.fixtures.heldout compare \\
-      --metric <metric.json> --reference docs/heldout_r5/m12_conc_index_dev.json
+      --metric <metric.json> --reference docs/heldout_r5/m12_conc_index_dev.json \\
+      [--leg heldout_m12_opq]
 
-`compare` prints one JSON object: both runs' MRR@10 and NDCG@10, the MRR@10
-difference and the queries whose metrics differ. Nothing here needs a card.
+`build --out_dir` writes another leg's fixture. `compare` prints one JSON
+object: both runs' MRR@10 and NDCG@10, their differences, the queries
+whose metrics differ and whether the leg's bars are met. Nothing here
+needs a card.
 """
 from __future__ import annotations
 
@@ -37,15 +49,28 @@ from typing import Any, Dict
 
 import numpy as np
 
-FIXTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "heldout_m12")
+HERE = os.path.dirname(os.path.abspath(__file__))
+# each leg's fixture: the TPU run it is held to (docs/heldout_r5/), that
+# run's MRR@10, and the bars on |port - TPU|, each set before the port's run
+LEGS = {
+    "heldout_m12": dict(reference="m12_conc_index_dev.json",
+                        tpu_mrr10=0.63838, mrr10_bar=0.02, ndcg10_bar=None),
+    "heldout_m12_opq": dict(reference="m12_opq_index_dev.json",
+                            tpu_mrr10=0.49315, mrr10_bar=0.03,
+                            ndcg10_bar=0.03),
+    "heldout_dense": dict(reference="dense_dev.json", tpu_mrr10=0.51141,
+                          mrr10_bar=0.02, ndcg10_bar=0.02),
+}
+FIXTURE_DIR = os.path.join(HERE, "heldout_m12")
+OPQ_FIXTURE_DIR = os.path.join(HERE, "heldout_m12_opq")
+DENSE_FIXTURE_DIR = os.path.join(HERE, "heldout_dense")
 INPUTS = "search_inputs.npz"
 QRELS = "qrels.dev.tsv"
 METRIC = "metric.json"
 TOPK = 1000
 SEARCH_BATCH = 1200  # run_repconc_eval's --search_batch default
-TPU_MRR10 = 0.63838  # docs/heldout_r5/m12_conc_index_dev.json
-MRR10_BAR = 0.02     # |port - TPU| MRR@10, set before the port's run
+TPU_MRR10 = LEGS["heldout_m12"]["tpu_mrr10"]
+MRR10_BAR = LEGS["heldout_m12"]["mrr10_bar"]
 
 
 def load(fixture_dir: str = FIXTURE_DIR) -> Dict[str, Any]:
@@ -91,14 +116,24 @@ def compare(metric: dict, reference: dict) -> dict:
                   for k in ("recip_rank_10", "ndcg_cut_10")}
               for q in sorted(got) if got[q] != want[q]}
     mrr, ref_mrr = metric["mrr"]["MRR@10"], reference["mrr"]["MRR@10"]
+    ndcg, ref_ndcg = metric["ndcg"]["NDCG@10"], reference["ndcg"]["NDCG@10"]
     return {"mrr_at_10": mrr, "reference_mrr_at_10": ref_mrr,
             "delta_mrr_at_10": mrr - ref_mrr,
-            "ndcg_at_10": metric["ndcg"]["NDCG@10"],
-            "reference_ndcg_at_10": reference["ndcg"]["NDCG@10"],
+            "ndcg_at_10": ndcg, "reference_ndcg_at_10": ref_ndcg,
+            "delta_ndcg_at_10": ndcg - ref_ndcg,
             "queries": len(got), "queries_differ": len(differ),
             "mrr10_differ": sum(v["recip_rank_10"][0] != v["recip_rank_10"][1]
                                 for v in differ.values()),
             "perquery_differ": differ}
+
+
+def bars_met(out: dict, leg: str) -> bool:
+    """Whether compare()'s output against the TPU run meets the leg's
+    bars."""
+    bars = LEGS[leg]
+    return (abs(out["delta_mrr_at_10"]) <= bars["mrr10_bar"]
+            and (bars["ndcg10_bar"] is None
+                 or abs(out["delta_ndcg_at_10"]) <= bars["ndcg10_bar"]))
 
 
 def build(corpus_dir: str, query_dir: str, model_dir: str, qrel_path: str,
@@ -133,6 +168,7 @@ def main(argv=None):
     c = sub.add_parser("compare")
     c.add_argument("--metric", default=os.path.join(FIXTURE_DIR, METRIC))
     c.add_argument("--reference", required=True)
+    c.add_argument("--leg", default="heldout_m12", choices=sorted(LEGS))
     args = p.parse_args(argv)
     if args.cmd == "build":
         build(args.corpus_dir, args.query_dir, args.model_dir, args.qrel_path,
@@ -140,8 +176,8 @@ def main(argv=None):
         return
     with open(args.metric) as f, open(args.reference) as g:
         out = compare(json.load(f), json.load(g))
-    out["bar"] = MRR10_BAR
-    out["bar_met"] = abs(out["delta_mrr_at_10"]) <= MRR10_BAR
+    out["bars"] = {k: LEGS[args.leg][k] for k in ("mrr10_bar", "ndcg10_bar")}
+    out["bar_met"] = bars_met(out, args.leg)
     print(json.dumps(out, indent=1))
 
 

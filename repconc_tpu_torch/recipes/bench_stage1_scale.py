@@ -103,7 +103,9 @@ def step_split_ms(model, hp, tx, batch, seeds, reps: int = 3):
     (median of `reps` steps): the encoder's forward and backward, the
     constrained encode (Sinkhorn), decode + loss (forward and backward) and
     the optimizer. The parts are train/stage1.py::loss_fn's, with the
-    encoder's backward run from the gradients of its outputs."""
+    encoder's backward run from the gradients of its outputs. Returns the
+    parts' times and the last step's losses (loss, contrastive_loss,
+    mse_loss)."""
     import torch
 
     from repconc_tpu_torch.quant import codebook, losses
@@ -133,10 +135,11 @@ def step_split_ms(model, hp, tx, batch, seeds, reps: int = 3):
         mask = (losses.false_negative_mask(batch["qids"], doc_ids,
                                            batch["query_positives"])
                 | losses.duplicate_negative_mask(batch["qids"], doc_ids))
-        loss = losses.contrastive_loss(
+        contrastive = losses.contrastive_loss(
             q_leaf, losses.straight_through(quantized, d_leaf), mask,
-            config.MCQ_M) + hp.mse_loss_weight * losses.mse_loss(quantized,
-                                                                 d_leaf)
+            config.MCQ_M)
+        mse = losses.mse_loss(quantized, d_leaf)
+        loss = contrastive + hp.mse_loss_weight * mse
         loss.backward()
         ev[3].record()
         torch.autograd.backward([enc["query"], doc], [q_leaf.grad, d_leaf.grad])
@@ -150,20 +153,27 @@ def step_split_ms(model, hp, tx, batch, seeds, reps: int = 3):
         parts["decode_loss"].append(t[2])
         parts["optimizer"].append(t[4])
         parts["step"].append(ev[0].elapsed_time(ev[5]))
-    return {k: statistics.median(v) for k, v in parts.items()}
+    return ({k: statistics.median(v) for k, v in parts.items()},
+            {"loss": float(loss.detach()),
+             "contrastive_loss": float(contrastive.detach()),
+             "mse_loss": float(mse.detach())})
 
 
 def run(batch: int = 4096, negs: int = 11, cache_chunk: int = 128,
         query_len: int = 16, doc_len: int = 128, M: int = 48,
-        dtype: str = "bfloat16", steps: int = 3, device="cuda") -> Dict:
+        dtype: str = "bfloat16", steps: int = 3, device="cuda",
+        warmup_batch: int = None) -> Dict:
     """Build the bert-base model (seeded random weights) and the batch on
     `device`, take one warm-up step and `steps` timed ones; returns the
-    numbers main() prints, with the metrics of the last step through
-    stage1.make_train_step, and the model. On a card the last timed step
-    is step_split_ms's: the same work (loss_fn's parts and the optimizer),
-    timed by the host clock around it, as the others, and by CUDA events
-    between its parts. Peak memory and the split are read on a card only
-    (None on the CPU, where the times are the CPU's)."""
+    numbers main() prints, with the metrics of the last step, and the
+    model. On a card the last timed step is step_split_ms's: the same work
+    (loss_fn's parts and the optimizer), timed by the host clock around
+    it, as the others, and by CUDA events between its parts; the metrics
+    are then its losses. Peak memory and the split are read on a card only
+    (None on the CPU, where the times are the CPU's). `warmup_batch`: the
+    warm-up step takes the bench's batch of that many queries instead (the
+    same GradCache chunk shapes, a fraction of the time); first_step_s is
+    then that step's."""
     import torch
 
     from repconc_tpu_torch.core.config import EncoderConfig, RepConcConfig
@@ -188,21 +198,28 @@ def run(batch: int = 4096, negs: int = 11, cache_chunk: int = 128,
     seeds = torch.Generator().manual_seed(0)  # dropout on, as in JAX's step
     n_docs = batch * (1 + negs)
 
-    def timed_step():
+    def timed_step(b=dev_batch):
         t0 = time.perf_counter()
-        metrics = step_fn(dev_batch, seeds)
+        metrics = step_fn(b, seeds)
         out = {k: float(v) for k, v in metrics.items()}  # syncs the device
         return time.perf_counter() - t0, out
 
     on_card = dev.type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
-    first_s, metrics = timed_step()
+    if warmup_batch:
+        first_s, metrics = timed_step({
+            k: torch.as_tensor(v).to(dev) for k, v in make_batch(
+                warmup_batch, negs, query_len, doc_len,
+                enc.vocab_size).items()})
+    else:
+        first_s, metrics = timed_step()
     times, split = [], None
     for i in range(steps):
         if on_card and i == steps - 1:
             t0 = time.perf_counter()
-            split = step_split_ms(model, hp, tx, dev_batch, seeds, reps=1)
+            split, metrics = step_split_ms(model, hp, tx, dev_batch, seeds,
+                                           reps=1)
             times.append(time.perf_counter() - t0)  # the events synced
         else:
             dt, metrics = timed_step()
@@ -215,6 +232,7 @@ def run(batch: int = 4096, negs: int = 11, cache_chunk: int = 128,
         "device": (torch.cuda.get_device_name(dev) if on_card else "cpu"),
         "batch": batch, "negs": negs, "docs_per_step": n_docs,
         "cache_chunk": cache_chunk, "query_len": query_len,
+        "warmup_batch": warmup_batch or batch,
         "doc_len": doc_len, "M": M, "dtype": dtype,
         "first_step_s": first_s, "step_s": times, "step_ms": step_s * 1e3,
         "queries_per_s": batch / step_s, "docs_per_s": n_docs / step_s,

@@ -4,6 +4,12 @@ BERT model dir, with numpy, torch and the standard library only.
     python -m repconc_tpu_torch.recipes.make_pipeline_data toy --out_dir WS
     python -m repconc_tpu_torch.recipes.make_pipeline_data synth --out_dir WS \\
         [--n_docs 200000 --hidden_layers 12 --hidden_size 768 ...]
+    python -m repconc_tpu_torch.recipes.make_pipeline_data complete-qrels \\
+        --data_dir WS/data [--splits train,dev.small]
+    python -m repconc_tpu_torch.recipes.make_pipeline_data split-heldout \\
+        WS/data OUT_ROOT
+    python -m repconc_tpu_torch.recipes.make_pipeline_data beir \\
+        --data_dir WS/data --split dev.small --out_dir BEIR_DIR
 
 The counterparts of recipes/toy/make_toy_data.py (`toy`: 40 words, 20
 topics, 2,000 docs, a 2-layer 64-wide BERT) and
@@ -13,6 +19,14 @@ vocabulary of 7,905 words at the defaults, bert-base widths), which need
 corpus.tsv, queries.{train,dev.small}.tsv, qrels.{train,dev.small}.tsv and
 vocab.txt byte for byte, and the tokenizer files HF's BertTokenizerFast
 saves (tokenizer.json, tokenizer_config.json, special_tokens_map.json).
+`complete-qrels` and `split-heldout` are recipes/synthetic/complete_qrels.py
+and split_queries_heldout.py (standard library only there too): the same
+files, byte for byte, for the same arguments. `beir` copies one split of a
+workspace into the BEIR layout that `run_repconc_eval --data_format beir`
+reads (corpus.jsonl, queries.jsonl, qrels/test.tsv), so that both formats
+encode the same strings: each doc's text is its fields joined by the
+tokenizer's separator, as the msmarco loader joins them, under an empty
+title, and the docs keep corpus.tsv's order.
 
 The model dir holds config.json and model.safetensors (core/safetensors_io.py)
 at the widths asked for: HF's BertModel and the port's load_dense_encoder
@@ -24,8 +38,12 @@ own initialisation of the same seed.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
+import re
+import shutil
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -272,6 +290,122 @@ def make_synth(out_dir: str, n_docs: int = 200_000, n_train_queries: int = 4000,
           f"subtopics, vocab {len(vocab)}")
 
 
+# -- the held-out split's data steps ---------------------------------------------
+
+_SUB = re.compile(r"^sub(\d+)[a-z]$")
+
+
+def complete_qrels(data_dir: str, splits: str = "train") -> None:
+    """recipes/synthetic/complete_qrels.py: rewrite qrels.<split>.tsv in
+    place with every doc of each query's subtopic judged relevant (the
+    original kept as qrels.<split>.sparse.tsv)."""
+    # subtopic words are "sub<digits><variant letter>"; the digit run grows
+    # past 4 chars for >=10k subtopics, so key on the full numeric id
+    sub_key = re.compile(r"sub\d+")
+    by_sub = defaultdict(list)
+    with open(os.path.join(data_dir, "corpus.tsv")) as f:
+        for line in f:
+            docid, title, _ = line.split("\t", 2)
+            by_sub[sub_key.match(title.split(" ", 1)[0]).group(0)].append(docid)
+    for split in splits.split(","):
+        qrel_path = os.path.join(data_dir, f"qrels.{split}.tsv")
+        sparse_path = os.path.join(data_dir, f"qrels.{split}.sparse.tsv")
+        if not os.path.exists(sparse_path):
+            shutil.copy(qrel_path, sparse_path)
+        n_q, n_lines = 0, 0
+        with open(os.path.join(data_dir, f"queries.{split}.tsv")) as fq, \
+                open(qrel_path, "w") as fo:
+            for line in fq:
+                qid, text = line.rstrip("\n").split("\t", 1)
+                sub_word = text.split(" ", 1)[0]
+                assert sub_word.startswith("sub"), (qid, text)
+                docs = by_sub[sub_key.match(sub_word).group(0)]
+                for d in docs:
+                    fo.write(f"{qid} 0 {d} 1\n")
+                n_q += 1
+                n_lines += len(docs)
+        print(f"complete {split} qrels: {n_q} queries, {n_lines} judgments "
+              f"(sparse original at {sparse_path})")
+
+
+def _side(query_text: str) -> int:
+    """0 (stage 0) or 1 (task) by a hash of the query's subtopic id, read
+    from its first word, so that a subtopic's queries land on one side."""
+    first = query_text.split()[0]
+    m = _SUB.match(first)
+    key = m.group(1) if m else first
+    return hashlib.sha1(key.encode()).digest()[0] % 2
+
+
+def split_heldout(src: str, out_root: str) -> None:
+    """recipes/synthetic/split_queries_heldout.py: out_root/data_stage0 and
+    out_root/data_task, each a DATA_DIR with half of src's subtopics'
+    queries and qrels and a symlink to src's corpus.tsv."""
+    dirs = [os.path.join(out_root, "data_stage0"),
+            os.path.join(out_root, "data_task")]
+    for d in dirs:
+        os.makedirs(d, exist_ok=True)
+        link = os.path.join(d, "corpus.tsv")
+        if not os.path.exists(link):
+            os.symlink(os.path.abspath(os.path.join(src, "corpus.tsv")), link)
+    for split_name in ("train", "dev.small"):
+        sides = {}
+        outs = [open(os.path.join(d, f"queries.{split_name}.tsv"), "w")
+                for d in dirs]
+        with open(os.path.join(src, f"queries.{split_name}.tsv")) as f:
+            for line in f:
+                qid, text = line.rstrip("\n").split("\t")
+                s = _side(text)
+                sides[qid] = s
+                outs[s].write(line)
+        for o in outs:
+            o.close()
+        routs = [open(os.path.join(d, f"qrels.{split_name}.tsv"), "w")
+                 for d in dirs]
+        with open(os.path.join(src, f"qrels.{split_name}.tsv")) as f:
+            for line in f:
+                qid = line.split()[0]
+                if qid in sides:
+                    routs[sides[qid]].write(line)
+        for o in routs:
+            o.close()
+        n0, n1 = (sum(1 for _ in open(os.path.join(d, f"queries.{split_name}.tsv")))
+                  for d in dirs)
+        print(f"{split_name}: stage0={n0} task={n1}")
+        assert n0 and n1, "degenerate split — check the first-token hashing"
+
+
+# -- BEIR layout -----------------------------------------------------------------
+
+def beir_layout(data_dir: str, split: str, out_dir: str,
+                sep_token: str = "[SEP]") -> None:
+    """corpus.jsonl, queries.jsonl and qrels/test.tsv of one split of a
+    DATA_DIR. A doc's text is its fields joined by `sep_token`, as
+    eval/run_io.py::load_corpus joins them, under an empty title
+    (load_beir_corpus then reads the same string); docs in corpus.tsv's
+    order, queries in the split's order."""
+    os.makedirs(os.path.join(out_dir, "qrels"), exist_ok=True)
+    with open(os.path.join(data_dir, "corpus.tsv")) as f, \
+            open(os.path.join(out_dir, "corpus.jsonl"), "w") as out:
+        for line in f:
+            docid, *fields = line.strip().split("\t")
+            text = sep_token.join(t.strip() for t in fields)
+            out.write(json.dumps({"_id": docid, "title": "", "text": text})
+                      + "\n")
+    with open(os.path.join(data_dir, f"queries.{split}.tsv")) as f, \
+            open(os.path.join(out_dir, "queries.jsonl"), "w") as out:
+        for line in f:
+            qid, text = line.split("\t")
+            out.write(json.dumps({"_id": qid, "text": text.strip()}) + "\n")
+    with open(os.path.join(data_dir, f"qrels.{split}.tsv")) as f, \
+            open(os.path.join(out_dir, "qrels", "test.tsv"), "w") as out:
+        out.write("query-id\tcorpus-id\tscore\n")
+        for line in f:
+            qid, _, docid, rel = line.split()
+            out.write(f"{qid}\t{docid}\t{rel}\n")
+    print(f"BEIR layout of {data_dir} ({split}) at {out_dir}")
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = parser.add_subparsers(dest="mode", required=True)
@@ -291,9 +425,23 @@ def main(argv=None) -> None:
     synth.add_argument("--hidden_layers", type=int, default=12)
     synth.add_argument("--hidden_size", type=int, default=768)
     synth.add_argument("--seed", type=int, default=0)
+    complete = sub.add_parser("complete-qrels",
+                              help="recipes/synthetic/complete_qrels.py")
+    complete.add_argument("--data_dir", required=True)
+    complete.add_argument("--splits", default="train")
+    heldout = sub.add_parser("split-heldout",
+                             help="recipes/synthetic/split_queries_heldout.py")
+    heldout.add_argument("src")
+    heldout.add_argument("out_root")
+    beir = sub.add_parser("beir", help="one split in the BEIR layout")
+    beir.add_argument("--data_dir", required=True)
+    beir.add_argument("--split", default="dev.small")
+    beir.add_argument("--out_dir", required=True)
+    beir.add_argument("--sep_token", default="[SEP]")
     args = vars(parser.parse_args(argv))
     mode = args.pop("mode")
-    (make_toy if mode == "toy" else make_synth)(**args)
+    {"toy": make_toy, "synth": make_synth, "complete-qrels": complete_qrels,
+     "split-heldout": split_heldout, "beir": beir_layout}[mode](**args)
 
 
 if __name__ == "__main__":

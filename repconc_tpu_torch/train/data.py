@@ -167,6 +167,27 @@ class QDRelDataset:
         return data
 
 
+def _offsets_of(index_doc_ids, docids) -> Dict[str, int]:
+    """{str(id): its offset in index_doc_ids (the last, if repeated)} for
+    the ids among `docids`. Integer ids are matched as integers (np.isin),
+    so that an index of millions of docs is not walked in Python."""
+    ids = np.asarray(index_doc_ids)
+    if ids.dtype.kind not in "iu":
+        return {k: i for i, d in enumerate(ids)
+                if (k := str(d)) in docids}
+    lo, hi = np.iinfo(ids.dtype).min, np.iinfo(ids.dtype).max
+    wanted = []
+    for d in docids:
+        try:
+            v = int(d)
+        except ValueError:
+            continue
+        if lo <= v <= hi:
+            wanted.append(v)
+    hits = np.nonzero(np.isin(ids, np.asarray(wanted, ids.dtype)))[0]
+    return {k: int(i) for i in hits if (k := str(ids[i])) in docids}
+
+
 class QueryDataset:
     """Stage-2 dataset: queries + qrels resolved to INDEX OFFSETS of a built
     code index (reference: finetune_jpq.py:86-139)."""
@@ -178,7 +199,6 @@ class QueryDataset:
         index_doc_ids: np.ndarray,
         rel_threshold: int = 1,
     ):
-        docid2offset = {str(d): i for i, d in enumerate(index_doc_ids)}
         self.queries: List[str] = []
         qid2offset: Dict[str, int] = {}
         with open(query_path) as f:
@@ -187,15 +207,17 @@ class QueryDataset:
                 qid2offset[qid] = idx
                 self.queries.append(query.strip())
 
-        self.qrels: Dict[int, List[int]] = {}
+        judged = []
         with open(qrel_path) as f:
             for line in f:
                 qid, _, docid, rel = line.split()
-                if qid not in qid2offset:
-                    continue
-                if int(rel) >= rel_threshold and docid in docid2offset:
-                    self.qrels.setdefault(qid2offset[qid], []).append(
-                        docid2offset[docid])
+                if qid in qid2offset and int(rel) >= rel_threshold:
+                    judged.append((qid2offset[qid], docid))
+        docid2offset = _offsets_of(index_doc_ids, {d for _, d in judged})
+        self.qrels: Dict[int, List[int]] = {}
+        for qoffset, docid in judged:
+            if docid in docid2offset:
+                self.qrels.setdefault(qoffset, []).append(docid2offset[docid])
         self.qids = sorted(self.qrels.keys())
 
     def __len__(self):

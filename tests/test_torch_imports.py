@@ -5,6 +5,7 @@ with plain nvcc rather than torch.utils.cpp_extension."""
 import ast
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -193,6 +194,42 @@ def test_slice12_module_is_guarded(name):
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+SHELL_RECIPES = sorted((PACKAGE / "recipes").glob("*.sh"))
+
+
+@pytest.mark.parametrize("path", SHELL_RECIPES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_shell_recipe_invokes_no_jax_module_or_pipeline(path):
+    """The port's shell recipes run only the port: no `repconc_tpu.`
+    module is invoked (python -m, or a launcher's -m), and neither the JAX
+    recipes/run_pipeline.sh nor a root recipes/ script that calls one is
+    run (the port's pipeline script is run_pipeline.sh beside them,
+    reached as ${HERE}/run_pipeline.sh)."""
+    text = path.read_text().replace("\\\n", " ")
+    code = "\n".join(ln for ln in text.split("\n")
+                     if not ln.lstrip().startswith("#"))
+    assert not re.search(r"-m\s+repconc_tpu\.", code), path.name
+    assert not re.search(r"import\s+repconc_tpu\b|from\s+repconc_tpu\s",
+                         code), path.name
+    for m in re.finditer(r'(\S*)run_pipeline\.sh', code):
+        assert m.group(1).endswith("${HERE}/"), (path.name, m.group(0))
+    for script in ("round4_heldout.sh", "compression_sweep.sh",
+                   "beir_eval.sh", "msmarco_scale_e2e.sh", "run_synth.sh",
+                   "run_matrix.sh", "persist_artifacts.sh",
+                   "split_queries_heldout.py", "complete_qrels.py",
+                   "make_synth_data.py", "make_toy_data.py"):
+        assert f"recipes/{script}" not in code and \
+            f"synthetic/{script}" not in code, (path.name, script)
+
+
+def test_shell_recipes_are_scanned():
+    """The scan above covers every twin of a JAX recipe."""
+    names = {p.name for p in SHELL_RECIPES}
+    assert names >= {"run_pipeline.sh", "run_toy.sh", "heldout_matrix.sh",
+                     "compression_sweep.sh", "beir_eval.sh",
+                     "msmarco_scale_e2e.sh", "stage7_across_cards.sh"}
 
 
 @pytest.mark.parametrize("cli", ["run_repconc_eval", "run_train_conc",

@@ -97,6 +97,28 @@ def test_query_dataset_and_collator_match_jax(toy_files, tokenizer):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
+@pytest.mark.parametrize("dtype", [np.int64, np.uint32, np.int32])
+def test_query_dataset_integer_ids_match_jax(tmp_path, dtype):
+    """Integer index ids (matched as integers, not walked in Python): the
+    same qrels offsets as the JAX package's, with a repeated id (its last
+    offset), judged docids outside the index, a non-canonical spelling of
+    an indexed id ("07" for 7) and a non-integer docid, all skipped as
+    there; and with the same ids as strings."""
+    (tmp_path / "queries.tsv").write_text(
+        "".join(f"q{i}\twhat is item {i}\n" for i in range(6)))
+    (tmp_path / "qrels.txt").write_text(
+        "q0 0 3 1\nq0 0 11 1\nq1 0 5 1\nq1 0 07 1\nq2 0 99 1\n"
+        "q3 0 d4 1\nq4 0 5 0\nq4 0 13 2\nq5 0 11 1\nq9 0 3 1\n")
+    ids = np.array([1, 3, 5, 7, 11, 5, 13, 2], dtype)
+    for index_ids in (ids, ids.astype(str)):
+        args = (str(tmp_path / "qrels.txt"), str(tmp_path / "queries.tsv"),
+                index_ids)
+        want, got = jax_data.QueryDataset(*args), data.QueryDataset(*args)
+        assert got.qids == want.qids == [0, 1, 4, 5]
+        assert got.qrels == want.qrels
+        assert got.qrels[1] == [5]  # the last of the repeated 5
+
+
 def test_padded_positives_keeps_the_sampled_one_first():
     qrels = {0: [5, 6, 7], 1: [9]}
     samples = [{"qid": 0, "pos_docid": 7}, {"qid": 1, "pos_docid": 9}]
