@@ -1494,42 +1494,15 @@ def phase_ivf_topk_check(dev):
 
 
 def launch_counts():
-    from repconc_tpu_torch.index.cuda_adc import (adc_filter, adc_group_max,
-                                                  adc_scores, adc_scores_int8,
-                                                  adc_topk)
-    from repconc_tpu_torch.index.cuda_ivf import (ivf_filter, ivf_group_max,
-                                                  ivf_topk, score_work_tiles)
+    from repconc_tpu_torch.index.launches import counts
 
-    return {"adc_scan": adc_scores.launches,
-            "adc_group_max": adc_group_max.launches,
-            "adc_filter": adc_filter.launches,
-            "adc_topk_reruns": adc_topk.reruns,
-            "ivf_scan_bf16": score_work_tiles.launches["bf16"],
-            "ivf_scan_i8": score_work_tiles.launches["int8"],
-            "ivf_group_max_bf16": ivf_group_max.launches["bf16"],
-            "ivf_group_max_i8": ivf_group_max.launches["int8"],
-            "ivf_filter_bf16": ivf_filter.launches["bf16"],
-            "ivf_filter_i8": ivf_filter.launches["int8"],
-            "ivf_topk_reruns": ivf_topk.reruns,
-            "adc_scan_i8": adc_scores_int8.launches}
+    return counts()
 
 
 def reset_launches():
-    from repconc_tpu_torch.index.cuda_adc import (adc_filter, adc_group_max,
-                                                  adc_scores, adc_scores_int8,
-                                                  adc_topk)
-    from repconc_tpu_torch.index.cuda_ivf import (ivf_filter, ivf_group_max,
-                                                  ivf_topk, score_work_tiles)
+    from repconc_tpu_torch.index.launches import reset
 
-    adc_scores.launches = 0
-    adc_group_max.launches = 0
-    adc_filter.launches = 0
-    adc_topk.reruns = 0
-    adc_scores_int8.launches = 0
-    score_work_tiles.launches = {"bf16": 0, "int8": 0}
-    ivf_group_max.launches = {"bf16": 0, "int8": 0}
-    ivf_filter.launches = {"bf16": 0, "int8": 0}
-    ivf_topk.reruns = 0
+    reset()
 
 
 def resum_check(queries, centroids, codes, scores, ids, spill_ids,
@@ -3935,16 +3908,24 @@ def start_recipe_data() -> dict:
     return out
 
 
+SIBLINGS = ("opq-eval", "jpq-train", "jpq-eval")
+
+
 def phase_pipeline_recipe(dev, data: dict):
     """The port's recipe as a user runs it: make_pipeline_data synth (run
     beside the earlier phases, start_recipe_data), then
     `bash repconc_tpu_torch/recipes/run_pipeline.sh <env> <stage>` for stages
     2-10 on the card (subprocesses, the real CLIs, the port's WordPiece
-    tokenizer, `transformers` not importable), then stage 8 again with IVF=1;
-    then stage 8 in this process through run_repconc_eval.main with the
+    tokenizer, `transformers` not importable), then, beside the rest of the
+    phase, the sibling recipes opq-eval and jpq-train, jpq-eval (K1's
+    launches in each counted through the launch log; opq-eval's codes equal
+    to the warm-up index's); stage 8 again with IVF=1; then stage 8 in this
+    process through run_repconc_eval.main with the
     launch counters, flat and IVF, whose metric.json must equal the
     recipe's. Each stage's files, finite MRR@10 in the dense, conc and jpq
     metric.json, each stage's wall time."""
+    import threading
+
     import numpy as np
     import torch
     from repconc_tpu_torch.cli import run_repconc_eval
@@ -3954,6 +3935,8 @@ def phase_pipeline_recipe(dev, data: dict):
                                                        RECIPE_ENV,
                                                        RECIPE_LAYERS,
                                                        RECIPE_STAGES,
+                                                       launch_env,
+                                                       read_launch_log,
                                                        stage_outputs,
                                                        write_env)
 
@@ -3993,6 +3976,25 @@ def phase_pipeline_recipe(dev, data: dict):
                 metrics[name] = json.load(f)
             check(np.isfinite(metrics[name]["mrr"]["MRR@10"]),
                   f"{name}/metric.json has a finite MRR@10")
+        # the sibling recipes on the same env (flat), beside the rest of the
+        # phase: opq-eval, and jpq-train then jpq-eval; each process's kernel
+        # launches counted by the launch log's hook
+        sibling_errors = []
+
+        def siblings(stages):
+            try:
+                for stage in stages:
+                    stage_s[stage] = run_logged(
+                        ["bash", driver, env_file, stage],
+                        launch_env(env, os.path.join(root, "launch_log", stage)),
+                        os.path.join(root, f"stage{stage}.log"))
+            except Exception as e:  # raised again where the phase joins
+                sibling_errors.append(e)
+
+        chains = [threading.Thread(target=siblings, args=(c,))
+                  for c in (SIBLINGS[:1], SIBLINGS[1:])]
+        for t in chains:
+            t.start()
         flat_metric = metrics["m12/conc_index/dev"]
         # stage 8 skips a query dir that holds a metric.json: the flat run's
         # dir is moved aside, as a user keeping both would
@@ -4057,6 +4059,35 @@ def phase_pipeline_recipe(dev, data: dict):
               "beir_eval.sh's metric.json equals stage 8's")
         print(f"pipeline_recipe beir_eval {stage_s['beir_eval']:.1f} s",
               flush=True)
+        for t in chains:
+            t.join()
+        if sibling_errors:
+            raise sibling_errors[0]
+        for stage in SIBLINGS:
+            missing = [p for p in outputs[stage]
+                       if not os.path.exists(os.path.join(out_root, p))]
+            check(not missing, f"stage {stage} wrote its files ({missing})")
+            records = read_launch_log(os.path.join(root, "launch_log", stage))
+            check(len(records) == 1, f"{stage} ran one counted process "
+                                     f"({[r['argv'][0] for r in records]})")
+            launches[stage] = n = records[0]["counts"]
+            check(n["adc_group_max"] > 0 and n["adc_filter"] > 0
+                  and n["adc_scan"] == 0,
+                  f"{stage} ran K1's two passes ({n})")
+            print(f"pipeline_recipe stage {stage} {stage_s[stage]:.1f} s "
+                  "(beside stage 8 IVF=1, the in-process stage 8 and "
+                  "beir_eval)", flush=True)
+        for name in ("m12/opq_index/dev", "m12/jpq_only_index/dev"):
+            with open(os.path.join(out_root, name, "metric.json")) as f:
+                metrics[name] = json.load(f)
+            check(all(np.isfinite(v) for v in (
+                metrics[name]["mrr"]["MRR@10"], metrics[name]["ndcg"]["NDCG@10"],
+                metrics[name]["recall"]["Recall@100"])),
+                f"{name}/metric.json is finite")
+        check(np.array_equal(
+            np.load(os.path.join(out_root, "m12/opq_index/codes.npy")),
+            np.load(os.path.join(out_root, "m12/warmup_index/codes.npy"))),
+            "opq-eval's corpus codes equal warmup_index/codes.npy")
         flat, ivf = launches["flat"], launches["ivf"]
         check(flat["adc_group_max"] > 0 and flat["adc_filter"] > 0
               and flat["adc_scan"] == 0,
@@ -4230,18 +4261,20 @@ def main(argv=None) -> int:
                 *sweep.values(), parallel["launches"],
                 *recipe["launches"].values()]
     # The recipe's paths: pipeline_recipe's stage 8 in process, flat (K1's
-    # passes) and IVF (K2's passes; K1's for the spill); and the held-out
-    # OPQ leg's search (K1's passes)
+    # passes) and IVF (K2's passes; K1's for the spill); the held-out OPQ
+    # leg's search (K1's passes); and the sibling recipes opq-eval,
+    # jpq-train (K1 in every step's search) and jpq-eval, in the recipe's
+    # processes (the launch log)
     k1_paths = (main_path["launches"], held_out["launches"],
-                held_out_opq["launches"], recipe["launches"]["flat"])
+                held_out_opq["launches"], recipe["launches"]["flat"],
+                *(recipe["launches"][s] for s in SIBLINGS))
+    k1_where = ("main_path + heldout_m12 + heldout_m12_opq + pipeline_recipe "
+                "flat, opq-eval, jpq-train and jpq-eval")
     launches = {
         "adc_scan": (sum(r["adc_scan"] for r in on_paths), None),
         "adc_group_max": (sum(r["adc_group_max"] for r in k1_paths),
-                          "main_path + heldout_m12 + heldout_m12_opq + "
-                          "pipeline_recipe flat"),
-        "adc_filter": (sum(r["adc_filter"] for r in k1_paths),
-                       "main_path + heldout_m12 + heldout_m12_opq + "
-                       "pipeline_recipe flat"),
+                          k1_where),
+        "adc_filter": (sum(r["adc_filter"] for r in k1_paths), k1_where),
         "ivf_scan_bf16": (sum(r["ivf_scan_bf16"] for r in on_paths), None),
         "ivf_scan_i8": (sum(r["ivf_scan_i8"] for r in on_paths), None),
         "adc_scan_i8": (sum(r["adc_scan_i8"] for r in on_paths), None),
@@ -4348,7 +4381,9 @@ def main(argv=None) -> int:
                 "heldout_m12": held_out["launches"][name],
                 "heldout_m12_opq": held_out_opq["launches"][name],
                 "pipeline_recipe_flat": recipe["launches"]["flat"][name],
-                "pipeline_recipe_ivf_spill": recipe["launches"]["ivf"][name]}
+                "pipeline_recipe_ivf_spill": recipe["launches"]["ivf"][name],
+                **{f"pipeline_recipe_{s}": recipe["launches"][s][name]
+                   for s in SIBLINGS}}
             entry["launches_elsewhere"] = {
                 k: v for k, v in elsewhere.items()}
             p = "pass1" if name == "adc_group_max" else "pass2"

@@ -3,6 +3,8 @@ line with the card's `nvidia-smi` name and power limit.
 
     python -m repconc_tpu_torch.recipes.recipe_runs sweep WS
     python -m repconc_tpu_torch.recipes.recipe_runs e2e WS [--n_docs 1000000]
+    python -m repconc_tpu_torch.recipes.recipe_runs synth WS [--n_docs 200000]
+    python -m repconc_tpu_torch.recipes.recipe_runs matrix WS
 
 sweep: chip_smoke.py's pipeline_recipe inputs (RECIPE_ENV and the rest
 below: make_pipeline_data.py synth at the M=12 model's widths: bert-base,
@@ -18,6 +20,24 @@ synth, 12 layers, 40,000 docs; stages 2, 3 and 5 through run_pipeline.sh:
 the OPQ warm-up of the seeded encoder, M=12), then msmarco_scale_e2e.sh
 over n_docs docs with it: each line of its output stamped with the seconds
 since the start, and its timings.json.
+
+synth: run_synth.sh WS n_docs (its own data step where WS has no corpus:
+make_pipeline_data.py synth at its defaults, bert-base: 12 layers, 768
+wide, vocab 7,905, mean pooling, 4,000 train and 500 dev queries), with
+the depth cut by SYNTH_DEPTH; each stage's wall seconds from
+stage_times.tsv, each eval leg's timings.json, Lpad and spill, which
+passes its search planned, and MRR@10 / NDCG@10 / R@100.
+
+matrix: run_matrix.sh WS on the workspace synth left behind, after moving
+synth's m48/ aside to m48.synth (every eval artifact is skip-if-exists and
+stage 7 resumes from its checkpoint, so the matrix would otherwise redo
+little at M=48); the same fields for each leg, with bytes a doc.
+
+synth and matrix print each cut with its value. A variable of SYNTH_DEPTH
+already set in the environment wins, as do the scripts' other knobs
+(NLIST, NPROBE, the batches, MATRIX_M, LOWMSE_M), so the same commands
+run at toy sizes on the CPU. Both count the kernels' launches in every
+process the twins start (launch_env, read_launch_log).
 
 DEVICE (default cuda) reaches every CLI. Every step runs as a subprocess
 of the committed scripts; this file only times them.
@@ -65,9 +85,11 @@ SWEEP_ENV = dict(RECIPE_ENV, M="${M:-12}", CONC_STEPS="20", EVAL_STEPS="20",
 
 
 def stage_outputs(m="12") -> dict:
-    """Each stage's files, under OUT_ROOT, at M=m."""
+    """Each stage's files, under OUT_ROOT, at M=m: stages 0 and 2-10 and
+    the sibling recipes."""
     e = f"m{m}"
     return {
+        "0": ("valid0/qrels.tsv", "dense_pretrain/export_hf/config.json"),
         "2": ("dense_model/config.json",),
         "3": ("dense/corpus_embeds.npy", "dense/dev/run.tsv",
               "dense/dev/metric.json"),
@@ -78,7 +100,12 @@ def stage_outputs(m="12") -> dict:
         "8": (f"{e}/conc_index/codes.npy", f"{e}/conc_index/dev/run.tsv",
               f"{e}/conc_index/dev/metric.json"),
         "9": (f"{e}/jpq/final/params.msgpack",),
-        "10": (f"{e}/jpq_index/dev/metric.json",)}
+        "10": (f"{e}/jpq_index/dev/metric.json",),
+        "opq-eval": (f"{e}/opq_index/codes.npy", f"{e}/opq_index/dev/run.tsv",
+                     f"{e}/opq_index/dev/metric.json"),
+        "jpq-train": (f"{e}/jpq_only/final/params.msgpack",),
+        "jpq-eval": (f"{e}/jpq_only_index/dev/run.tsv",
+                     f"{e}/jpq_only_index/dev/metric.json")}
 
 
 def write_env(path: str, ws: str, env: dict = RECIPE_ENV) -> None:
@@ -244,6 +271,185 @@ def e2e(ws: str, n_docs: int, model_docs: int, model_layers: int) -> None:
          card=card_line())
 
 
+# The rehearsal's depth cuts: variable -> (the cut, the scripts' value,
+# what it sets). run_synth.sh and run_matrix.sh read each from the
+# environment; a value already set there wins. Widths, n_docs, M, nlist,
+# nprobe, the batches and MAX_DOC_LEN_EVAL stay the scripts' own.
+SYNTH_DEPTH = {
+    "DENSE_STEPS": ("100", "2000", "stage 0's steps"),
+    "DENSE_EVAL_STEPS": ("50", "200", "stage 0's validation and save "
+                                      "interval"),
+    "CONC_STEPS": ("20", "800", "stage 7's steps"),
+    "JPQ_STEPS": ("20", "800", "the steps of stage 9 and jpq-train"),
+    "EVAL_STEPS": ("20", "100", "stage 7's validation and save interval in "
+                                "run_synth.sh (run_matrix.sh fixes its own "
+                                "at 100)")}
+EVAL_LEGS = {  # leg (its recipe): its corpus dir and query dir under m<M>/
+    "conc_index": ("conc_index", "conc_index/dev"),             # stage 8
+    "jpq_index": ("conc_index", "jpq_index/dev"),               # stage 10
+    "opq_index": ("opq_index", "opq_index/dev"),                # opq-eval
+    "jpq_only_index": ("warmup_index", "jpq_only_index/dev")}   # jpq-eval
+
+
+def depth_env(env: dict) -> dict:
+    return dict(env, **{k: env.get(k, cut)
+                        for k, (cut, _, _) in SYNTH_DEPTH.items()})
+
+
+def depth_cuts(env: dict) -> dict:
+    return {k: f"{env[k]} (the script: {full}): {what}"
+            for k, (_, full, what) in SYNTH_DEPTH.items()}
+
+
+def launch_env(env: dict, log_dir: str) -> dict:
+    """`env` with launch_log/sitecustomize.py first on PYTHONPATH: each
+    Python process started with it writes its kernel launch counts into
+    log_dir when it exits."""
+    path = env.get("PYTHONPATH")
+    return dict(env, REPCONC_LAUNCH_LOG=log_dir,
+                PYTHONPATH=os.path.join(HERE, "launch_log")
+                + (os.pathsep + path if path else ""))
+
+
+def read_launch_log(log_dir: str) -> list:
+    """[{"argv", "counts"}] of the processes that wrote into log_dir, in
+    the order they ended."""
+    if not os.path.isdir(log_dir):
+        return []
+    paths = sorted((os.path.join(log_dir, n) for n in os.listdir(log_dir)),
+                   key=os.path.getmtime)
+    out = []
+    for p in paths:
+        with open(p) as f:
+            out.append(json.load(f))
+    return out
+
+
+def launches_by_output(records: list, out_root: str) -> dict:
+    """Each CLI process's nonzero launch counts, keyed by its module and
+    output dir (--out_query_dir, else --output_dir) under out_root."""
+    out = {}
+    for r in records:
+        argv = r["argv"]
+        flags = {a: b for a, b in zip(argv, argv[1:]) if a.startswith("--")}
+        where = flags.get("--out_query_dir", flags.get("--output_dir", ""))
+        key = (os.path.basename(argv[0]).removesuffix(".py") + " "
+               + os.path.relpath(where, out_root) if where else argv[0])
+        counts = {k: v for k, v in r["counts"].items() if v}
+        if counts:
+            out[key] = counts
+    return out
+
+
+def read_stage_times(path: str) -> dict:
+    """stage_times.tsv's "<stage>\t<n>s" lines as {stage: seconds}."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            stage, secs = line.rstrip("\n").split("\t")
+            out[stage] = int(secs.rstrip("s"))
+    return out
+
+
+def read_metrics(path: str) -> dict:
+    with open(path) as f:
+        m = json.load(f)
+    return {"MRR@10": m["mrr"]["MRR@10"], "NDCG@10": m["ndcg"]["NDCG@10"],
+            "R@100": m["recall"]["Recall@100"]}
+
+
+def eval_leg(exp: str, leg: str, nprobe=None, topk: int = 1000) -> dict:
+    """One eval's metrics, timings.json phases, codes' bytes a doc, and
+    which passes its search planned: for IVF (an nprobe given), Lpad, the
+    spill and K2's pass 1 (index/cuda_ivf.py::ivf_plan) and K1's over the
+    spill; flat, K1's pass 1 (index/cuda_adc.py::search_plan)."""
+    from repconc_tpu_torch.index.cuda_adc import search_plan
+    from repconc_tpu_torch.index.cuda_ivf import ivf_plan
+
+    corpus, query = (os.path.join(exp, d) for d in EVAL_LEGS[leg])
+    out = {"metrics": read_metrics(os.path.join(query, "metric.json"))}
+    timings = os.path.join(query, "timings.json")
+    if os.path.exists(timings):
+        with open(timings) as f:
+            out["timings"] = json.load(f)
+    codes = np.load(os.path.join(corpus, "codes.npy"), mmap_mode="r")
+    n = int(codes.shape[0])
+    out.update(docs=n, bytes_per_doc=codes.nbytes / n)
+    if nprobe is not None:
+        with np.load(os.path.join(corpus, "ivf_index.npz")) as z:
+            nlist, lpad = z["cell_ids"].shape
+            spill = len(z["spill_ids"])
+        out.update(nlist=int(nlist), Lpad=int(lpad), spill=spill,
+                   k2_pass1=ivf_plan(nprobe, int(lpad), topk)[0],
+                   k1_spill_pass1=bool(spill) and search_plan(
+                       spill, min(topk, spill))[0] is not None)
+    else:
+        out["k1_pass1"] = search_plan(n, topk)[0] is not None
+    return out
+
+
+def workspace_widths(ws: str) -> dict:
+    """The encoder's widths and the query counts of a synth workspace."""
+    with open(os.path.join(ws, "models", "synth-bert-base",
+                           "config.json")) as f:
+        c = json.load(f)
+    out = {k: c[k] for k in ("num_hidden_layers", "hidden_size",
+                             "num_attention_heads", "vocab_size")}
+    for split in ("train", "dev.small"):
+        with open(os.path.join(ws, "data", f"queries.{split}.tsv")) as f:
+            out[f"queries_{split}"] = sum(1 for _ in f)
+    return out
+
+
+def synth(ws: str, n_docs: int) -> None:
+    env = depth_env(env_with_repo())
+    os.makedirs(ws, exist_ok=True)
+    emit("synth_setup", card=card_line(), docs=n_docs, cuts=depth_cuts(env),
+         nlist=env.get("NLIST", "1024"), nprobe=env.get("NPROBE", "32"))
+    log_dir = os.path.join(ws, "launch_log_synth")
+    wall = run(["bash", os.path.join(HERE, "run_synth.sh"), ws, str(n_docs)],
+               launch_env(env, log_dir), os.path.join(ws, "synth.log"))
+    out_root = os.path.join(ws, "experiments", "synth")
+    stage_s = read_stage_times(os.path.join(ws, "stage_times.tsv"))
+    exp = os.path.join(out_root, "m48")
+    for leg in EVAL_LEGS:
+        emit("synth_leg", leg=f"m48/{leg}",
+             **eval_leg(exp, leg, nprobe=int(env.get("NPROBE", "32"))))
+    emit("synth", wall_s=wall, stage_s=stage_s,
+         outside_stages_s=wall - sum(stage_s.values()),
+         widths=workspace_widths(ws),
+         dense=read_metrics(os.path.join(out_root, "dense", "dev",
+                                         "metric.json")),
+         launches=launches_by_output(read_launch_log(log_dir), out_root),
+         card=card_line())
+
+
+def matrix(ws: str) -> None:
+    env = depth_env(env_with_repo())
+    out_root = os.path.join(ws, "experiments", "synth")
+    m48, aside = os.path.join(out_root, "m48"), os.path.join(out_root,
+                                                             "m48.synth")
+    moved = None
+    if os.path.isdir(m48) and not os.path.exists(aside):
+        os.rename(m48, aside)
+        moved = f"{m48} -> {aside}"
+    emit("matrix_setup", card=card_line(), cuts=depth_cuts(env),
+         moved_aside=moved, matrix_m=env.get("MATRIX_M", "48 12 4"),
+         lowmse_m=env.get("LOWMSE_M", "4 12"))
+    log_dir = os.path.join(ws, "launch_log_matrix")
+    wall = run(["bash", os.path.join(HERE, "run_matrix.sh"), ws],
+               launch_env(env, log_dir), os.path.join(ws, "matrix.log"))
+    stage_s = read_stage_times(os.path.join(ws, "stage_times_matrix.tsv"))
+    for mm in ("m48", "m12", "m4", "m4-lowmse", "m12-lowmse"):
+        exp = os.path.join(out_root, mm)
+        for leg, (_, query) in EVAL_LEGS.items():
+            if os.path.exists(os.path.join(exp, query, "metric.json")):
+                emit("matrix_leg", leg=f"{mm}/{leg}", **eval_leg(exp, leg))
+    emit("matrix", wall_s=wall, stage_s=stage_s,
+         launches=launches_by_output(read_launch_log(log_dir), out_root),
+         card=card_line())
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -257,11 +463,19 @@ def main(argv=None) -> None:
     e.add_argument("--n_docs", type=int, default=1_000_000)
     e.add_argument("--model_docs", type=int, default=40_000)
     e.add_argument("--model_layers", type=int, default=12)
+    y = sub.add_parser("synth")
+    y.add_argument("ws")
+    y.add_argument("--n_docs", type=int, default=200_000)
+    sub.add_parser("matrix").add_argument("ws")
     args = p.parse_args(argv)
     if args.cmd == "sweep":
         sweep(args.ws, args.sweep_m, args.docs, args.layers)
-    else:
+    elif args.cmd == "e2e":
         e2e(args.ws, args.n_docs, args.model_docs, args.model_layers)
+    elif args.cmd == "synth":
+        synth(args.ws, args.n_docs)
+    else:
+        matrix(args.ws)
 
 
 if __name__ == "__main__":

@@ -229,7 +229,8 @@ def test_shell_recipes_are_scanned():
     names = {p.name for p in SHELL_RECIPES}
     assert names >= {"run_pipeline.sh", "run_toy.sh", "heldout_matrix.sh",
                      "compression_sweep.sh", "beir_eval.sh",
-                     "msmarco_scale_e2e.sh", "stage7_across_cards.sh"}
+                     "msmarco_scale_e2e.sh", "stage7_across_cards.sh",
+                     "run_synth.sh", "run_matrix.sh"}
 
 
 @pytest.mark.parametrize("cli", ["run_repconc_eval", "run_train_conc",
